@@ -5,9 +5,13 @@
 
 1. Builds the hand-written kernels from mpsfm_tpu_torch/csrc/*.cu with
    nvcc for sm_90a (one nvcc per source, all started together) into
-   mpsfm_tpu_torch/_build/, and prints the build time.
+   mpsfm_tpu_torch/_build/, and prints the build time and what ptxas
+   reports of each kernel (registers, spills).
 2. Holds each kernel against its plain torch version on the card:
-   K1 (cholesky.cu) on random SPD matrices at K = 384 and 1024; K2
+   K1 (cholesky.cu) on random SPD matrices at K = 6, 390, 384 and 1024,
+   strongly and less diagonally dominant, and on two with a zeroed row
+   and column (a clamped pivot), timed beside its plain version and the
+   library call at 384 and 1024; K2
    (bini.cu) as the PCG core of the main path's first IRLS round and as
    the fixed-budget solve, at B = 8 images of 290×387.
 3. Drives the main path at full size, once to warm up and once measured
@@ -56,7 +60,13 @@ IMG_W, IMG_H, FOCAL = 640.0, 480.0, 500.0
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
-K1_TOL = 1e-4  # max |Δx| of K1 vs its plain version (|x| ~ 0.1)
+K1_TOL = 1e-4  # max |Δx| of K1 vs its plain version
+# S = A·Aᵀ + shift·K·I: for each shift, the bound on max |Δx| / max |x| of K1
+# vs its plain version and on the residual ‖S·x − b‖ / ‖b‖ of the kernel's x
+# (float64). Two float32 orders differ by about a tenth of it; a trailing
+# update that misses one 32×64 tile of one panel is off by a hundred times it
+# or more, where the absolute bound alone may not see it (|x| ~ 1e-3 at shift 1).
+K1_REL = {1.0: 1e-5, 0.01: 1e-4}
 K2_TOL = 2e-3  # max |Δz| in log-depth of K2 vs its plain version (the JAX Pallas-vs-XLA bar)
 
 
@@ -285,35 +295,80 @@ def cuda_ms(fn, reps):
     return e0.elapsed_time(e1) / reps
 
 
-def k1_phase(dev, rng):
-    """K1 vs its plain version at K = 384 (the bench bundle's 6C) and 1024."""
+def k1_check(S, b, rel, what):
+    """K1 vs its plain version on (S, b): finite, max |Δx| ≤ K1_TOL, max |Δx| /
+    max |x| ≤ rel and ‖S·x − b‖ / ‖b‖ ≤ rel. Returns (x, max |Δx|, a line)."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
 
-    out = {}
-    for K in (384, 1024):
+    x = cholesky.cholesky_solve(S, b)
+    ref = cholesky.cholesky_solve_plain(S, b)
+    err = float((x - ref).abs().max())
+    rel_err = err / float(ref.abs().max())
+    b64 = b.double()
+    res = float(torch.linalg.vector_norm(S.double() @ x.double() - b64) / torch.linalg.vector_norm(b64))
+    line = (f"{what}: max|kernel - plain| {err:.3e} (tolerance {K1_TOL}), relative {rel_err:.2e}, "
+            f"residual {res:.2e} (tolerance {rel}), max|x| {float(ref.abs().max()):.3g}")
+    if not (bool(torch.isfinite(x).all()) and err <= K1_TOL and rel_err <= rel and res <= rel):
+        raise AssertionError(f"K1 disagrees with its plain version: {line}")
+    return x, err, line
+
+
+def k1_phase(dev, rng):
+    """K1 vs its plain version at K = 6 (one ragged panel), 390 (a ragged
+    last panel), 384 (the bench bundle's 6C) and 1024, on S = A·Aᵀ +
+    shift·K·I for each shift of K1_REL, and with a zeroed row and column
+    (its pivot clamped to 1e-20); times of the kernel, the plain version and
+    the library call at 384 and 1024 (shift 1). Returns the K = 384 figures
+    (the main path's shape)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    def spd(K, shift):
         A = rng.normal(size=(K, K)).astype(np.float32)
-        S = torch.as_tensor(A @ A.T + K * np.eye(K, dtype=np.float32), device=dev)
-        b = torch.as_tensor(rng.normal(size=K).astype(np.float32), device=dev)
-        x = cholesky.cholesky_solve(S, b)
-        ref = cholesky.cholesky_solve_plain(S, b)
-        err = float((x - ref).abs().max())
-        print(f"K1 cholesky_solve K={K}: max|kernel - plain| = {err:.3e} (tolerance {K1_TOL})")
-        if not err <= K1_TOL:
-            raise AssertionError(f"K1 disagrees with its plain version at K={K}: {err}")
-        if K == 384:
-            ms = cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20)
-            plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2)
+        S = A @ A.T + shift * K * np.eye(K, dtype=np.float32)
+        return S, rng.normal(size=K).astype(np.float32)
+
+    out = {}
+    for K in (6, 390, 384, 1024):
+        parts, errs = [], []
+        for shift, rel in K1_REL.items():
+            S, b = (torch.as_tensor(a, device=dev) for a in spd(K, shift))
+            _, err, line = k1_check(S, b, rel, f"shift {shift}")
+            parts.append(line)
+            errs.append(err)
+            if shift == 1.0:
+                S1, b1 = S, b
+        line = f"K1 cholesky_solve K={K}: " + "; ".join(parts)
+        if K in (384, 1024):
+            ms = cuda_ms(lambda: cholesky.cholesky_solve(S1, b1), 20)
+            plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S1, b1), 2)
 
             def library():
-                return torch.cholesky_solve(b[:, None], torch.linalg.cholesky(S))
+                return torch.cholesky_solve(b1[:, None], torch.linalg.cholesky(S1))
 
             lib_ms = cuda_ms(library, 20)
             flops = K ** 3 / 3 + 2 * K * K
             nbytes = 4 * (K * K + 2 * K)
-            out = dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       ops_ms=flops / PEAK_F32 * 1e3, bytes_ms=nbytes / PEAK_BYTES * 1e3)
+            bound_ms = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
+            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, "
+                     f"bound {bound_ms:.5f} ms")
+            if K == 384:
+                out = dict(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           ops_ms=flops / PEAK_F32 * 1e3, bytes_ms=nbytes / PEAK_BYTES * 1e3)
+        print(line)
+    for K, z in ((42, 35), (390, 100)):  # z in the ragged last panel, and in a full one
+        S, b = spd(K, 1.0)
+        S[z, :] = 0.0
+        S[:, z] = 0.0
+        b[z] = 0.0
+        x, _, line = k1_check(torch.as_tensor(S, device=dev), torch.as_tensor(b, device=dev), K1_REL[1.0],
+                              f"K1 cholesky_solve K={K}, row and column {z} zeroed")
+        if float(x[z]) != 0.0:
+            raise AssertionError(f"K1 at a clamped pivot: x[{z}] = {float(x[z])}, not 0")
+        print(line + f", x[{z}] = 0")
     return out
 
 
@@ -429,6 +484,10 @@ def main():
     t0 = time.perf_counter()
     build_s = kernels.build_all(kernels.all_kernels())
     print(f"kernel build: {build_s:.1f} s (nvcc, sm_90a, both sources in parallel)")
+    for k in kernels.all_kernels():  # ptxas: registers, shared memory and spills of each kernel
+        for ln in k.build_log.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                print(f"  {k.name}: {ln.strip()}")
 
     t = time.perf_counter()
     inputs = make_inputs(**FULL)

@@ -1,12 +1,13 @@
 """Cholesky solve of the BA's reduced camera system (K1; counterpart of
 mpsfm_tpu/ba/pallas_cholesky.py).
 
-`cholesky_solve(S, rhs)` returns x = S⁻¹·rhs for one SPD (K,K) matrix.
-On a CUDA tensor it launches the hand-written kernel csrc/cholesky.cu
-(right-looking Cholesky + both triangular solves in one launch, sm_90a);
-on a CPU tensor it runs `cholesky_solve_plain`, the same right-looking
-algorithm step by step in torch. There is no fallback between the two:
-a CUDA tensor reaches the kernel or the call raises.
+`cholesky_solve(S, rhs)` returns x = S⁻¹·rhs for one SPD (K,K) matrix,
+read from its lower triangle. On a CUDA tensor it launches the
+hand-written kernel csrc/cholesky.cu (blocked Cholesky with 32-wide
+panels + blocked triangular solves, one launch, sm_90a); on a CPU tensor
+it runs `cholesky_solve_plain`, the same blocked order in torch. There
+is no fallback between the two: a CUDA tensor reaches the kernel or the
+call raises.
 """
 
 from __future__ import annotations
@@ -16,28 +17,54 @@ import torch
 from mpsfm_tpu_torch.kernels import I, P, Kernel, stream_ptr
 
 MAX_K = 4096  # CHOL_MAX_K of csrc/cholesky.cu (shared-memory vector)
+NB = 32  # panel width (CHOL_NB of csrc/cholesky.cu)
 
 KERNEL = Kernel("cholesky", "cholesky.cu", {"chol_solve_f32": [P, P, P, P, I, P]})
 
 
+def _solve_lower(L: torch.Tensor, b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """L⁻¹·b (or L⁻ᵀ·b) for a small lower-triangular block L and b (n,) or (n,m)."""
+    A = L.T if transpose else L
+    B = b[:, None] if b.dim() == 1 else b
+    x = torch.linalg.solve_triangular(A, B, upper=transpose)
+    return x[:, 0] if b.dim() == 1 else x
+
+
 def cholesky_solve_plain(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Right-looking rank-1 Cholesky with d = sqrt(max(djj, 1e-20)), then
-    forward and backward substitution — the kernel's algorithm in torch."""
+    """The kernel's algorithm in torch: right-looking blocked Cholesky of
+    the lower triangle with NB-wide panels (the last one ragged) — per
+    panel the diagonal block column by column with d = sqrt(max(djj,
+    1e-20)), the panel's triangular solve L₂₁ = A₂₁·L₁₁⁻ᵀ and the trailing
+    update A₂₂ −= L₂₁·L₂₁ᵀ — then blocked forward and backward
+    substitution. (The kernel runs each block of the forward substitution
+    inside the panel loop; every block of y gets the same updates in the
+    same order either way.)"""
     K = S.shape[0]
-    A = S.clone()
-    for j in range(K):
-        d = torch.sqrt(torch.clamp(A[j, j], min=1e-20))
-        A[j, j] = d
-        l = A[j + 1:, j] / d
-        A[j + 1:, j] = l
-        A[j + 1:, j + 1:] -= torch.outer(l, l)
+    A = torch.tril(S)
+    for c0 in range(0, K, NB):
+        c1 = min(c0 + NB, K)
+        D = A[c0:c1, c0:c1]
+        for j in range(c1 - c0):
+            d = torch.sqrt(torch.clamp(D[j, j], min=1e-20))
+            D[j, j] = d
+            l = D[j + 1:, j] / d
+            D[j + 1:, j] = l
+            D[j + 1:, j + 1:] -= torch.outer(l, l)
+        L11 = torch.tril(D)
+        A[c0:c1, c0:c1] = L11
+        if c1 < K:
+            L21 = _solve_lower(L11, A[c1:, c0:c1].T).T
+            A[c1:, c0:c1] = L21
+            A[c1:, c1:] -= L21 @ L21.T  # only the lower triangle is read again
     y = rhs.clone()
-    for j in range(K):
-        y[j] = y[j] / A[j, j]
-        y[j + 1:] -= y[j] * A[j + 1:, j]
-    for j in range(K - 1, -1, -1):
-        y[j] = y[j] / A[j, j]
-        y[:j] -= y[j] * A[j, :j]
+    for c0 in range(0, K, NB):
+        c1 = min(c0 + NB, K)
+        y[c0:c1] = _solve_lower(A[c0:c1, c0:c1], y[c0:c1])
+        y[c1:] -= A[c1:, c0:c1] @ y[c0:c1]
+    for c0 in reversed(range(0, K, NB)):
+        c1 = min(c0 + NB, K)
+        y[c0:c1] -= A[c1:, c0:c1].T @ y[c1:]
+        y[c0:c1] = _solve_lower(A[c0:c1, c0:c1], y[c0:c1], transpose=True)
     return y
 
 

@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 P = ctypes.c_void_p
@@ -48,6 +48,7 @@ class Kernel:
         self.source = CSRC / source
         self.signatures = signatures
         self.launches = 0
+        self.build_log = ""  # nvcc's output of this process's build (ptxas: registers, spills)
         self._lib = None
 
     def _target(self) -> Path:
@@ -65,12 +66,12 @@ class Kernel:
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         return proc, tmp, target
 
-    @staticmethod
-    def _finish_build(job):
+    def _finish_build(self, job):
         proc, tmp, target = job
         out, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {target.name}:\n{out}")
+        self.build_log = out
         os.replace(tmp, target)
 
     def lib(self):
@@ -98,9 +99,9 @@ def build_all(kernels) -> float:
     t0 = time.perf_counter()
     jobs = [k._start_build() for k in kernels]
     try:
-        for job in jobs:
+        for k, job in zip(kernels, jobs):
             if job is not None:
-                Kernel._finish_build(job)
+                k._finish_build(job)
     finally:  # a failed build leaves no other nvcc running
         for job in jobs:
             if job is not None and job[0].poll() is None:
