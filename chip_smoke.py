@@ -12,8 +12,14 @@
    strongly and less diagonally dominant, and on two with a zeroed row
    and column (a clamped pivot), timed beside its plain version and the
    library call at 384 and 1024; K2
-   (bini.cu) as the PCG core of the main path's first IRLS round and as
-   the fixed-budget solve, at B = 8 images of 290×387.
+   (bini.cu) as the PCG core of the main path's first IRLS round (iteration
+   counts within 1, bit-identical from run to run, and at B = 16 as two
+   lane groups; a cooperative launch larger than the card refused) and as
+   the fixed-budget solve, at B = 8 images of 290×387, timed per solve, per
+   CG iteration and against the design's floor (its two lane barriers per
+   iteration with almost no arithmetic). The same checks are shown to fail
+   the plain version turned into a kernel with a stale or dropped halo at
+   one CTA's seams.
 3. Drives the main path at full size, once to warm up and once measured
    with every launch count set to 0 just before: the mapper's refinement step in the order of the JAX
    package's Optimizer.ba_fused — BiNI energy gate + IRLS/PCG solve of 8
@@ -38,6 +44,7 @@ synthetic, made from a seed with numpy.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -67,7 +74,12 @@ K1_TOL = 1e-4  # max |Δx| of K1 vs its plain version
 # update that misses one 32×64 tile of one panel is off by a hundred times it
 # or more, where the absolute bound alone may not see it (|x| ~ 1e-3 at shift 1).
 K1_REL = {1.0: 1e-5, 0.01: 1e-4}
-K2_TOL = 2e-3  # max |Δz| in log-depth of K2 vs its plain version (the JAX Pallas-vs-XLA bar)
+# max |Δz| in log-depth of K2 vs its plain version. Sound runs differ only in
+# the order of the dot products' sums (1.6e-6 at the PCG's tolerance, 1.7e-5
+# after the fixed budget's 5000 iterations, on an H100); k2_phase shows that a
+# kernel whose CTA reads a stale or dropped halo at its seams fails it
+# (fixed budget 1.7e-2 and 4.9e-3).
+K2_TOL = 1e-4
 
 
 # ---- synthetic inputs (numpy, from a seed) ----
@@ -372,11 +384,111 @@ def k1_phase(dev, rng):
     return out
 
 
+@contextlib.contextmanager
+def k2_card_holds(n):
+    """K2's lane-group planner sees a card that holds n CTAs at once."""
+    from mpsfm_tpu_torch.integration import bini_fused
+
+    capacity = bini_fused._capacity
+    bini_fused._capacity = lambda dev, W: n
+    try:
+        yield
+    finally:
+        bini_fused._capacity = capacity
+
+
+@contextlib.contextmanager
+def k2_seam_fault(kind, chunk, cta):
+    """The plain PCG turned into a kernel with a faulty seam: from the second
+    CG iteration on, CTA `cta` of every lane (pixels [cta·chunk, (cta+1)·chunk)
+    of the flattened image) computes Ap from a halo whose p is that of the
+    previous iteration (kind "stale": p_old read in place of p_new) or 0
+    ("dropped"). Every other pixel's Ap is right."""
+    import torch
+
+    from mpsfm_tpu_torch.integration import bini_fused
+
+    matvec, pcg_plain = bini_fused.matvec, bini_fused.pcg_plain
+
+    def faulty_pcg(*args):
+        seen = {"calls": 0, "prev": None}  # matvec is given A x0 first, then p of each iteration
+
+        def faulty_matvec(st, v):
+            out = matvec(st, v)
+            if seen["calls"] >= 2:
+                B = v.shape[0]
+                s, e = cta * chunk, min((cta + 1) * chunk, v[0].numel())
+                halo = seen["prev"] if kind == "stale" else torch.zeros_like(v)
+                mix = halo.reshape(B, -1).clone()
+                mix[:, s:e] = v.reshape(B, -1)[:, s:e]
+                out = out.reshape(B, -1).clone()
+                out[:, s:e] = matvec(st, mix.view_as(v)).reshape(B, -1)[:, s:e]
+                out = out.view_as(v)
+            seen["calls"] += 1
+            seen["prev"] = v
+            return out
+
+        bini_fused.matvec = faulty_matvec
+        try:
+            return pcg_plain(*args)
+        finally:
+            bini_fused.matvec = matvec
+
+    bini_fused.pcg_plain = faulty_pcg
+    try:
+        yield
+    finally:
+        bini_fused.pcg_plain = pcg_plain
+
+
+def k2_pcg_check(what, args, active):
+    """K2's PCG vs its plain version on the same inputs: max |Δx| ≤ K2_TOL
+    and per-lane iteration counts within 1. Returns (x, iterations, max |Δx|,
+    the plain version's x and iterations)."""
+    from mpsfm_tpu_torch.integration import bini_fused
+
+    x, iters = bini_fused.pcg(*args, active)
+    xr, iters_r = bini_fused.pcg_plain(*args, active)
+    err = float((x - xr).abs().max())
+    gap = int((iters - iters_r).abs().max())
+    print(f"K2 pcg ({what}): max|kernel - plain| = {err:.3e} (tolerance {K2_TOL}); "
+          f"iterations kernel {iters.cpu().tolist()} plain {iters_r.cpu().tolist()}")
+    if not (err <= K2_TOL and gap <= 1):
+        raise AssertionError(f"K2 PCG disagrees with its plain version ({what}): {err}, iterations {gap} apart")
+    return x, iters, err, xr, iters_r
+
+
+def k2_floor_ms(dev, B, cpl, iters=200):
+    """Time per iteration of K2's PCG at B lanes of cpl CTAs each with one
+    pixel a thread (16 rows of PCG_THREADS cpl / 16 pixels a lane, a random
+    diagonally dominant stencil, fixed budget): the design's own floor, its
+    two lane barriers and its reads of partials and halo with almost no
+    arithmetic."""
+    import torch
+
+    from mpsfm_tpu_torch.integration import bini_fused
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shape = (B, 16, bini_fused.PCG_THREADS // 16 * cpl)
+    ex, ey, pa, b, x0 = (torch.rand(shape, device=dev, generator=g) for _ in range(5))
+    ex[..., -1] = 0.0  # the stencil's border: no edge beyond the last column and row
+    ey[..., -1, :] = 0.0
+    st = bini_fused.Stencil(ex, ey, pa + 1.0)
+    dg = bini_fused.diag(st)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    if len(bini_fused.plan_groups(B, shape[1] * shape[2], B * cpl)) != 1:
+        raise AssertionError("the floor's lanes do not fit one group")
+    with k2_card_holds(B * cpl):
+        return cuda_ms(lambda: bini_fused.pcg(st, b, dg, x0, iters, -1.0, active), 3) / iters
+
+
 def k2_phase(dev, inputs):
     """K2 vs its plain version at the main path's shapes: the PCG core on
     the first IRLS round's operator (tolerance and budget of the main
-    path), and the fixed-budget solve (BiniParams(max_iter=10,
-    cg_max_iter=1000), clamped to 500 CG iterations)."""
+    path; run-to-run identity; B = 16 as two lane groups; an oversized grid
+    refused), and the fixed-budget solve (BiniParams(max_iter=10,
+    cg_max_iter=1000), clamped to 500 CG iterations). Times per solve and
+    per CG iteration, and the design's floor."""
     import torch
 
     from mpsfm_tpu_torch import convert
@@ -388,18 +500,49 @@ def k2_phase(dev, inputs):
     p = bini.BiniParams(**MAIN_BINI)
     wx, wy = bini_fused.weights(inp.z0, p.k)
     st, b, dg = bini._operator(inp, p, wx, wy)
-    active = torch.ones(inp.z0.shape[0], dtype=torch.bool, device=dev)
-    x, iters = bini_fused.pcg(st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol, active)
-    xr, iters_r = bini_fused.pcg_plain(st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol, active)
-    err = float((x - xr).abs().max())
-    its, its_r = iters.cpu().tolist(), iters_r.cpu().tolist()
-    print(f"K2 pcg (main path, tol {p.cg_tol}): max|kernel - plain| = {err:.3e} (tolerance {K2_TOL}); "
-          f"iterations kernel {its} plain {its_r}")
-    if not err <= K2_TOL:
-        raise AssertionError(f"K2 PCG disagrees with its plain version: {err}")
-    ms = cuda_ms(lambda: bini_fused.pcg(st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol, active), 3)
-    plain_ms = cuda_ms(lambda: bini_fused.pcg_plain(st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol, active), 1)
     Bn, H, W = inp.z0.shape
+    args = (st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol)
+    active = torch.ones(Bn, dtype=torch.bool, device=dev)
+    cap = bini_fused._capacity(inp.z0.device.index, W)
+    groups = bini_fused.plan_groups(Bn, H * W, cap)
+    print(f"K2 pcg plan: {cap} co-resident CTAs of {bini_fused.PCG_THREADS} threads; B = {Bn}: {groups}")
+    x, iters, err, xr, iters_r = k2_pcg_check(f"main path, tol {p.cg_tol}", args, active)
+    its = iters.cpu().tolist()
+    x2, iters2 = bini_fused.pcg(*args, active)
+    if not (torch.equal(x2, x) and torch.equal(iters2, iters)):
+        raise AssertionError("K2 PCG is not bit-identical from run to run")
+    print("K2 pcg run to run: x and iterations bit-identical")
+
+    # B = 2 Bn: the second half starts from a noisier z0; the planner makes two groups
+    noise = torch.randn(inp.z0.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED))
+    args16 = (bini_fused.Stencil(*(torch.cat([f, f]) for f in st)), torch.cat([b, b]), torch.cat([dg, dg]),
+              torch.cat([inp.z0, inp.z0 + 0.01 * noise]), p.cg_max_iter, p.cg_tol)
+    active16 = torch.ones(2 * Bn, dtype=torch.bool, device=dev)
+    groups16 = bini_fused.plan_groups(2 * Bn, H * W, cap)
+    n0 = bini_fused.KERNEL.launches
+    x16, _, err16, _, _ = k2_pcg_check(f"B = {2 * Bn}, {len(groups16)} lane groups", args16, active16)
+    if len(groups16) < 2 or bini_fused.KERNEL.launches - n0 != len(groups16):
+        raise AssertionError(f"K2 at B = {2 * Bn}: {bini_fused.KERNEL.launches - n0} launches for {groups16}")
+    if groups16[0] == groups[0]:  # the same lanes on the same CTAs
+        if not torch.equal(x16[:Bn], x):
+            raise AssertionError("K2's first lane group at B = 16 differs from the same lanes at B = 8")
+        print(f"K2 pcg B = {2 * Bn}: first group bit-identical to the B = {Bn} run")
+
+    too_many = Bn * -(-H * W // bini_fused.PCG_THREADS)  # one pixel a thread: more CTAs than the card holds
+    try:
+        with k2_card_holds(too_many):
+            bini_fused.pcg(*args, active)
+    except RuntimeError as e:
+        print(f"K2 pcg on {too_many} CTAs: refused ({e})")
+    else:
+        raise AssertionError(f"K2's cooperative launch of {too_many} CTAs was not refused")
+
+    ms = cuda_ms(lambda: bini_fused.pcg(*args, active), 5)
+    plain_ms = cuda_ms(lambda: bini_fused.pcg_plain(*args, active), 1)
+    floor_iter = k2_floor_ms(dev, Bn, groups[0].cpl)
+    print(f"K2 pcg: {ms:.4f} ms per solve, {1e3 * ms / max(its):.3f} us per CG iteration ({max(its)} iterations); "
+          f"design floor {1e3 * floor_iter:.3f} us per iteration ({floor_iter * max(its):.4f} ms per solve)")
+    err = max(err, err16)
     flops = 26.0 * H * W * sum(its)  # per pixel-iteration: stencil 15, three dots 6, updates 5
     nbytes = 4.0 * 7 * Bn * H * W  # ex, ey, pa, b, diag, x0 read once; x written once
 
@@ -408,9 +551,26 @@ def k2_phase(dev, inputs):
     zr = bini_fused.bini_solve_fused_plain(inp, pf)
     err_f = float((zf - zr).abs().max())
     print(f"K2 bini_solve_fused (10 x {min(pf.cg_max_iter, bini_fused.PALLAS_CG_CAP)} CG, B={Bn} {H}x{W}): "
-          f"max|kernel - plain| = {err_f:.3e} (tolerance {K2_TOL})")
+          f"max|kernel - plain| = {err_f:.3e} (tolerance {K2_TOL}); max|z - z0| {float((zr - inp.z0).abs().max()):.3e}")
     if not err_f <= K2_TOL:
         raise AssertionError(f"K2 fixed-budget solve disagrees with its plain version: {err_f}")
+
+    # the same two checks must fail a kernel with a faulty halo at the seams of
+    # one CTA a lane; the middle CTA's seams fall mid-row (W does not divide chunk)
+    g0 = groups[0]
+    cta, passed = g0.cpl // 2, []
+    for kind in ("stale", "dropped"):
+        with k2_seam_fault(kind, bini_fused.PCG_THREADS * g0.ppt, cta):
+            xf, itf = bini_fused.pcg_plain(*args, active)
+            zff = bini_fused.bini_solve_fused_plain(inp, pf)
+        e_pcg, gap = float((xf - xr).abs().max()), int((itf - iters_r).abs().max())
+        e_fix = float((zff - zr).abs().max())
+        print(f"K2 checks vs a {kind} halo at CTA {cta}'s seams: PCG max|Δx| {e_pcg:.3e}, iterations up to "
+              f"{gap} apart; fixed budget max|Δz| {e_fix:.3e} (tolerance {K2_TOL})")
+        if (e_pcg <= K2_TOL and gap <= 1) or e_fix <= K2_TOL:
+            passed.append(kind)
+    if passed:
+        raise AssertionError(f"K2's checks would pass a kernel with a {passed} halo at one seam")
     f_ms = cuda_ms(lambda: bini_fused.bini_solve_fused(inp, pf), 1)
     f_plain_ms = cuda_ms(lambda: bini_fused.bini_solve_fused_plain(inp, pf), 1)
     print(f"K2 bini_solve_fused: kernel {f_ms:.3f} ms, plain {f_plain_ms:.3f} ms")
@@ -447,7 +607,7 @@ def profile_slice(inputs, dev, top=12):
     by_name = {}
     launches = 0
     for e in prof.events():  # device-side events: kernels and copies
-        launches += e.name == "cudaLaunchKernel"
+        launches += e.name in ("cudaLaunchKernel", "cudaLaunchCooperativeKernel")
         if e.device_type == torch.autograd.DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())

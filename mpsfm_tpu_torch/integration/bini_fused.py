@@ -25,12 +25,17 @@ their plain torch versions for CPU tensors, never one for the other:
   bini_solve_fused()   the fixed-budget solve of bini_solve_pallas: max_iter
                        IRLS rounds × min(cg_max_iter, 500) PCG iterations.
 
-KERNEL.launches counts PCG solves launched on the card (one per pcg()
-call; bini_solve_fused launches one per IRLS round).
+On the card a PCG solve is one launch of a persistent kernel per group of
+lanes (plan_groups): every iteration runs inside it, and the host reads
+nothing until it returns. KERNEL.launches counts those launches (one per
+pcg() call while the batch fits the card as one group; bini_solve_fused
+launches one per IRLS round and group).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -43,14 +48,17 @@ KERNEL = Kernel(
     "bini.cu",
     {
         "bini_setup": [P] * 9 + [F] + [P] * 6 + [I] * 4 + [P],
-        "bini_pcg_init": [P] * 11 + [I] * 4 + [P],
-        "bini_pcg_iters": [P] * 14 + [I, I, F] + [I] * 4 + [P],
+        "bini_pcg_capacity": [I, I, ctypes.POINTER(ctypes.c_int)],
+        "bini_pcg": [P] * 13 + [I, F] + [I] * 6 + [P],
     },
 )
 
-THREADS = 256  # THREADS of csrc/bini.cu
+# constants of csrc/bini.cu (_capacity checks the PCG's three against the library)
+THREADS = 256  # setup kernels
+PCG_THREADS = 512  # threads per CTA of the persistent PCG
+PPT_CAP = 14  # pixels a PCG thread owns at most (main path: 14 at 8 × 290×387)
+NPART = 4  # partial sums per CTA
 PALLAS_CG_CAP = 500  # bini_pallas.py clamps the fused kernel's CG budget
-CHUNK = 64  # PCG iterations between host checks for "every lane stopped"
 
 
 # ---- stencil ----
@@ -163,8 +171,52 @@ def pcg_plain(st: Stencil, b, dg, x0, max_iter: int, tol: float, active):
 # ---- the kernel ----
 
 def _nbl(H: int, W: int) -> int:
-    """Blocks per lane: ~4 pixels per thread, at most 1024 partials a lane."""
+    """Blocks per lane of the setup kernels: ~4 pixels per thread."""
     return max(1, min(1024, -(-H * W // (THREADS * 4))))
+
+
+class LaneGroup(NamedTuple):
+    """Lanes [lane0, lane0 + lanes) solved by one persistent PCG launch."""
+
+    lane0: int
+    lanes: int
+    cpl: int  # CTAs per lane
+    ppt: int  # pixels per thread
+
+
+def plan_groups(B: int, n_pix: int, max_ctas: int) -> list[LaneGroup]:
+    """Split B lanes of n_pix pixels into groups whose CTAs are all resident
+    at once (at most max_ctas), each lane on whole CTAs of PCG_THREADS
+    threads owning at most PPT_CAP pixels each. Groups are as few and as
+    even as possible; within a group each lane is spread over as many CTAs
+    as fit. Raises ValueError when one lane alone does not fit."""
+    cpl_min = -(-n_pix // (PCG_THREADS * PPT_CAP))
+    if cpl_min > max_ctas:
+        raise ValueError(f"bini PCG: an image of {n_pix} pixels needs {cpl_min} co-resident CTAs; "
+                         f"the card holds {max_ctas}")
+    n_groups = -(-B // (max_ctas // cpl_min)) if B else 0
+    groups, lane0 = [], 0
+    for g in range(n_groups):
+        lanes = (B - lane0) // (n_groups - g)
+        ppt = -(-n_pix // (max_ctas // lanes * PCG_THREADS))
+        groups.append(LaneGroup(lane0, lanes, -(-n_pix // (ppt * PCG_THREADS)), ppt))
+        lane0 += lanes
+    return groups
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(dev: int, W: int) -> int:
+    """CTAs of the PCG kernel that card `dev` holds at once for images W
+    wide (the planner's only question to the card; tests substitute it).
+    Raises when this module's copy of the kernel's layout is not the
+    library's."""
+    out = (ctypes.c_int * 4)()
+    KERNEL.call("bini_pcg_capacity", dev, W, out)
+    layout = (PCG_THREADS, PPT_CAP, NPART)
+    if tuple(out[1:]) != layout:
+        raise RuntimeError(f"bini.cu's PCG layout (threads, pixel cap, partials) {tuple(out[1:])} "
+                           f"is not bini_fused.py's {layout}")
+    return out[0]
 
 
 def _check_maps(*ts):
@@ -175,38 +227,27 @@ def _check_maps(*ts):
 
 
 def _pcg_cuda(st: Stencil, b, dg, x0, max_iter: int, tol: float, active):
+    """One persistent-kernel launch per lane group; no host read in between."""
     _check_maps(st.ex, st.ey, st.pa, b, dg, x0)
     Bn, H, W = x0.shape
-    nbl = _nbl(H, W)
-    maps = [t.contiguous() for t in (st.ex, st.ey, st.pa, b, dg)]
-    ex, ey, pa, b, dg = maps
+    N = H * W
+    dev = x0.device.index
+    groups = plan_groups(Bn, N, _capacity(dev, W))
+    ex, ey, pa, b, dg = (t.contiguous() for t in (st.ex, st.ey, st.pa, b, dg))
     x = x0.contiguous().clone()
-    r, zv, minv, p0, p1, ap = (torch.empty_like(x) for _ in range(6))
-    part = torch.empty((6, Bn, nbl), dtype=torch.float32, device=x.device)
+    zg, p0, p1 = (torch.empty_like(x) for _ in range(3))
     act = active.to(device=x.device, dtype=torch.int32).contiguous()
-    live = torch.ones(Bn, dtype=torch.int32, device=x.device)
     iters = torch.zeros(Bn, dtype=torch.int32, device=x.device)
+    bar = torch.zeros(Bn, dtype=torch.int32, device=x.device)  # lane barrier counters
     s = stream_ptr(x)
-    KERNEL.call(
-        "bini_pcg_init", ex.data_ptr(), ey.data_ptr(), pa.data_ptr(), b.data_ptr(), dg.data_ptr(),
-        x.data_ptr(), r.data_ptr(), zv.data_ptr(), minv.data_ptr(), part.data_ptr(), act.data_ptr(),
-        Bn, H, W, nbl, s,
-    )
-    step = max_iter if tol < 0 else CHUNK
-    it = 0
-    while it < max_iter:
-        n = min(step, max_iter - it)
+    for g in groups:
+        part = torch.empty((g.lanes, NPART, g.cpl), dtype=torch.float32, device=x.device)
+        maps = (t.data_ptr() + 4 * g.lane0 * N for t in (ex, ey, pa, b, dg, x, zg, p0, p1))
         KERNEL.call(
-            "bini_pcg_iters", ex.data_ptr(), ey.data_ptr(), pa.data_ptr(), minv.data_ptr(),
-            x.data_ptr(), r.data_ptr(), zv.data_ptr(), p0.data_ptr(), p1.data_ptr(), ap.data_ptr(),
-            part.data_ptr(), act.data_ptr(), live.data_ptr(), iters.data_ptr(),
-            it, n, float(tol), Bn, H, W, nbl, s,
+            "bini_pcg", *maps, part.data_ptr(), *(t.data_ptr() + 4 * g.lane0 for t in (bar, act, iters)),
+            max_iter, float(tol), g.lanes, H, W, g.cpl, g.ppt, dev, s,
         )
-        it += n
-        # every lane stopped before the last iteration: the rest are no-ops
-        if it < max_iter and not bool(live.any()):
-            break
-    KERNEL.launches += 1
+        KERNEL.launches += 1
     return x, iters
 
 

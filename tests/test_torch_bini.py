@@ -26,6 +26,9 @@ from mpsfm_tpu_torch.integration import bini_fused
 from test_integration_bini import make_inputs, plane_scene
 
 MEAN_TOL = 1e-4
+# max |Δx| of K2 on the card vs its plain version (chip_smoke.py's K2_TOL; a
+# stale or dropped halo at one CTA's seams exceeds it, as chip_smoke.py shows)
+CARD_TOL = 1e-4
 
 GH, GW = 48, 64  # gate-test grid
 
@@ -243,6 +246,37 @@ def test_integrator_matches_jax(rng):
     assert jint.should_refine(inp) == tint.should_refine(inp)
 
 
+# ---- the kernel's lane groups ----
+
+@pytest.mark.parametrize("B, H, W, max_ctas", [
+    (8, 290, 387, 132),  # the main path: one group, 16 CTAs a lane
+    (16, 290, 387, 132),  # two groups of 8
+    (9, 290, 387, 132),
+    (5, 96, 128, 3),  # one lane a group, 3 CTAs each
+    (7, 500, 700, 132),  # groups of 2, 2 and 3
+    (3, 1, 1, 132),
+])
+def test_plan_groups_covers_lanes_within_capacity(B, H, W, max_ctas):
+    n_pix = H * W
+    groups = bini_fused.plan_groups(B, n_pix, max_ctas)
+    lanes = [g.lane0 + i for g in groups for i in range(g.lanes)]
+    assert lanes == list(range(B))  # every lane in exactly one group, in order
+    assert max(g.lanes for g in groups) - min(g.lanes for g in groups) <= 1
+    for g in groups:
+        assert g.lanes * g.cpl <= max_ctas  # all CTAs of a group resident at once
+        assert 1 <= g.ppt <= bini_fused.PPT_CAP
+        chunk = bini_fused.PCG_THREADS * g.ppt
+        assert (g.cpl - 1) * chunk < n_pix <= g.cpl * chunk  # no CTA without pixels
+        assert g.lanes * n_pix <= max_ctas * bini_fused.PCG_THREADS * bini_fused.PPT_CAP
+
+
+def test_plan_groups_rejects_a_lane_too_large():
+    cap = 132 * bini_fused.PCG_THREADS * bini_fused.PPT_CAP
+    assert len(bini_fused.plan_groups(1, cap, 132)) == 1
+    with pytest.raises(ValueError, match="co-resident"):
+        bini_fused.plan_groups(1, cap + 1, 132)
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -251,23 +285,73 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(rng, cuda):
+def test_kernel_matches_plain_on_card(rng, cuda, monkeypatch):
     """K2 on the card vs its plain version on the same card: the PCG core
-    with the main path's tolerance, and the fixed-budget solve."""
+    with the main path's tolerance (one launch, run-to-run identical, an
+    inactive lane untouched, a batch split into two lane groups equal to
+    the groups run alone), and the fixed-budget solve."""
     depth_gt, normals = plane_scene(rng)
     lanes = [_np(make_inputs(plane_scene(rng, noise=s)[0], normals)) for s in (0.03, 0.05)]
     inp = convert.bini_inputs(_stack(lanes), device=cuda)
     p = tbini.BiniParams(max_iter=3, cg_max_iter=300, cg_tol=1e-3)
     wx, wy = bini_fused.weights(inp.z0, p.k)
     st, b, dg = tbini._operator(inp, p, wx, wy)
+    args = (st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol)
     active = torch.tensor([True, True], device=cuda)
     n0 = bini_fused.KERNEL.launches
-    x, it = bini_fused.pcg(st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol, active)
+    x, it = bini_fused.pcg(*args, active)
     torch.cuda.synchronize()
     assert bini_fused.KERNEL.launches == n0 + 1
-    xr, itr = bini_fused.pcg_plain(st, b, dg, inp.z0, p.cg_max_iter, p.cg_tol, active)
+    xr, itr = bini_fused.pcg_plain(*args, active)
     assert (it - itr).abs().max() <= 1
-    assert float((x - xr).abs().max()) < 2e-3
+    assert float((x - xr).abs().max()) < CARD_TOL
+    x2, it2 = bini_fused.pcg(*args, active)
+    assert torch.equal(x2, x) and torch.equal(it2, it)
+    x3, it3 = bini_fused.pcg(*args, torch.tensor([False, True], device=cuda))
+    assert torch.equal(x3[0], inp.z0[0]) and int(it3[0]) == 0
+    assert torch.equal(x3[1], x[1]) and int(it3[1]) == int(it[1])  # lanes are independent
+
+    max_ctas = 3  # a card holding 3 CTAs: 2 hold a 96×128 lane, so one lane a group, 3 CTAs each
+    assert len(bini_fused.plan_groups(2, inp.z0[0].numel(), max_ctas)) == 2
+    monkeypatch.setattr(bini_fused, "_capacity", lambda dev, W: max_ctas)
+    n0 = bini_fused.KERNEL.launches
+    x4, it4 = bini_fused.pcg(*args, active)
+    torch.cuda.synchronize()
+    assert bini_fused.KERNEL.launches == n0 + 2
+    assert (it4 - itr).abs().max() <= 1
+    assert float((x4 - xr).abs().max()) < CARD_TOL
+    for lane in range(2):
+        one = [f[lane:lane + 1] for f in (*st, b, dg, inp.z0)]
+        x1, it1 = bini_fused.pcg(bini_fused.Stencil(*one[:3]), *one[3:], p.cg_max_iter, p.cg_tol, active[:1])
+        assert torch.equal(x1[0], x4[lane]) and int(it1[0]) == int(it4[lane])
+    monkeypatch.undo()
+
     z = bini_fused.bini_solve_fused(inp, p)
     zr = bini_fused.bini_solve_fused_plain(inp, p)
-    assert float((z - zr).abs().max()) < 2e-3
+    assert float((z - zr).abs().max()) < CARD_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H, W, max_ctas", [
+    (64, 700, None),  # 2W > 1024 halo pixels: the halo's tail loop; the card's own capacity
+    (8, 700, 22),  # one pixel a thread: a CTA's 512 pixels are fewer than W
+])
+def test_kernel_wide_images_on_card(rng, cuda, monkeypatch, H, W, max_ctas):
+    """K2's PCG on images wider than 512 pixels vs its plain version, on a
+    random diagonally dominant stencil at two lanes."""
+    ex, ey, pa, b, x0 = (torch.as_tensor(rng.random((2, H, W), dtype=np.float32), device=cuda)
+                         for _ in range(5))
+    ex[..., -1] = 0.0  # no edge beyond the last column and row
+    ey[..., -1, :] = 0.0
+    st = bini_fused.Stencil(ex, ey, 0.05 + 0.1 * pa)
+    args = (st, b - 0.5, bini_fused.diag(st), x0, 1000, 1e-3)
+    active = torch.tensor([True, True], device=cuda)
+    if max_ctas is not None:
+        monkeypatch.setattr(bini_fused, "_capacity", lambda dev, W: max_ctas)
+    (g,) = bini_fused.plan_groups(2, H * W, bini_fused._capacity(x0.device.index, W))
+    assert W > bini_fused.PCG_THREADS and (max_ctas is None or bini_fused.PCG_THREADS * g.ppt < W)
+    x, it = bini_fused.pcg(*args, active)
+    xr, itr = bini_fused.pcg_plain(*args, active)
+    assert int(itr.min()) > 10
+    assert (it - itr).abs().max() <= 1
+    assert float((x - xr).abs().max()) < CARD_TOL

@@ -12,8 +12,13 @@ depth |Δquat| 3.3e-6, |Δt| 6.7e-5, |Δxyz| 6.0e-4. The rel_tol latch
 (stop at the first accepted step that moves the cost by < 1e-6
 relative) fires at different iterations in the two packages, because
 the last steps' cost changes sit at float32 rounding level: the JAX
-loop runs 12 iterations (5 accepted), the port's 5 (5 accepted). So
-cost_history is compared over the iterations both loops ran.
+loop runs 12 iterations (5 accepted), the port's 5 (5 accepted). So the
+latch case compares cost_history over the iterations both loops ran,
+and not the accepted count, which would rest on the order of the sums.
+The LM decisions are compared where they do not: with rel_tol = 0 over
+the first DECISION_ITERS iterations, whose relative cost changes (0.97,
+1.5e-2, 1.3e-4 on this bundle) are far above float32 resolution; the
+fourth is 3.6e-6, below the 1e-5 the test requires of them.
 """
 
 import numpy as np
@@ -35,14 +40,26 @@ def _ran(hist, cost0):
     return n
 
 
-def _compare(C, P, with_depth, max_iters=20):
+DECISION_ITERS = 3  # LM iterations whose relative cost change is ≥ 1e-5 on the 8 × 256 bundle
+
+
+def _compare(C, P, with_depth, max_iters=20, rel_tol=1e-6):
+    """Port vs JAX. With rel_tol = 0 (no latch) the accepted count and the
+    whole cost history must agree, and every step must move the cost by at
+    least 1e-5 relative in JAX, far above float32 resolution."""
     sparse = _synthetic_ba_data(n_cams=C, n_pts=P, with_depth=with_depth)
     jd = jdensify(sparse, C, P)
-    qj, tj, xj, ij = jsolve(jd, max_iters=max_iters)
+    qj, tj, xj, ij = jsolve(jd, max_iters=max_iters, rel_tol=rel_tol)
     arrays = {k: np.asarray(v) for k, v in jd._asdict().items()}
-    qt, tt, xt, it = tdense.solve_ba_dense(convert.dense_ba_data(arrays, device="cpu"), max_iters=max_iters)
-    assert it["accepted"] == int(ij["accepted"])
+    qt, tt, xt, it = tdense.solve_ba_dense(
+        convert.dense_ba_data(arrays, device="cpu"), max_iters=max_iters, rel_tol=rel_tol
+    )
     cost0 = float(ij["cost0"])
+    if rel_tol == 0.0:
+        hj = np.asarray(ij["cost_history"], np.float64)
+        prev = np.concatenate([[cost0], hj[:-1]])
+        assert ((prev - hj) / prev >= 1e-5).all(), (prev - hj) / prev
+        assert it["accepted"] == int(ij["accepted"]) == max_iters
     np.testing.assert_allclose(float(it["cost0"]), cost0, rtol=1e-5)
     np.testing.assert_allclose(float(it["cost"]), float(ij["cost"]), rtol=1e-3)
     assert float(it["cost"]) < cost0
@@ -55,9 +72,16 @@ def _compare(C, P, with_depth, max_iters=20):
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), atol=1e-3)
 
 
+@pytest.mark.parametrize("mode", ["latch", "decisions"])
 @pytest.mark.parametrize("with_depth", [True, False])
-def test_solve_ba_dense_matches_jax(with_depth):
-    _compare(8, 256, with_depth)
+def test_solve_ba_dense_matches_jax(with_depth, mode):
+    """latch: the default run (20 iterations, rel_tol 1e-6); decisions:
+    rel_tol 0 over the iterations whose cost changes are far above float32
+    resolution, where the accepted counts must agree."""
+    if mode == "latch":
+        _compare(8, 256, with_depth)
+    else:
+        _compare(8, 256, with_depth, max_iters=DECISION_ITERS, rel_tol=0.0)
 
 
 @pytest.mark.slow
