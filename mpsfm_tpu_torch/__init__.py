@@ -1,18 +1,24 @@
 """mpsfm_tpu_torch — the PyTorch/CUDA port of mpsfm_tpu for one NVIDIA H100.
 
 The JAX package `mpsfm_tpu` stays the reference; this package is ported
-beside it slice by slice and never imports it (nor jax). Slice 1 is the
-mapper's refinement step: BiNI gate + IRLS/PCG solve, device-side depth
-rows, dense LM-Schur bundle adjustment.
+beside it slice by slice and never imports it (nor jax). So far: the
+mapper's refinement step with its uncertainty chain — point covariances,
+BiNI gate + IRLS/PCG solve, diag(H⁻¹) at the keypoints and the updated
+depth variances, device-side depth rows, dense LM-Schur bundle adjustment.
 
 Layout (each module mirrors its counterpart in mpsfm_tpu/):
   geometry/rotations.py     quaternion / SE(3) math
-  ba/losses.py, solver.py   robust losses, LM helpers
-  ba/cholesky.py            reduced-camera Cholesky solve (CUDA kernel K1)
+  ba/losses.py, solver.py   robust losses, BAData + assembly, LM helpers
+  ba/cholesky.py            reduced-camera Cholesky solve, one or many
+                            right-hand sides (CUDA kernels K1)
+  ba/covariance.py          Schur point covariances
   ba/dense.py               dense (C,P) LM-Schur BA
   ba/device_depth.py        depth observation rows sampled on the device
-  integration/bini.py       BiNI energy, IRLS, anchor transport, builders
+  integration/bini.py       BiNI energy, IRLS, anchor transport, diag(H⁻¹),
+                            builders
   integration/bini_fused.py BiNI PCG core + fixed-budget solve (CUDA kernel K2)
+  integration/bini_diag.py  deflated PCG of diag(H⁻¹) (CUDA kernel K3)
+  scene/image_priors.py     the updated keypoint depth variances
   kernels.py                nvcc build + ctypes loader for csrc/*.cu
   convert.py                JAX-package state (numpy) -> port tensors
 

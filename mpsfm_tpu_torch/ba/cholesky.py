@@ -2,12 +2,15 @@
 mpsfm_tpu/ba/pallas_cholesky.py).
 
 `cholesky_solve(S, rhs)` returns x = S⁻¹·rhs for one SPD (K,K) matrix,
-read from its lower triangle. On a CUDA tensor it launches the
-hand-written kernel csrc/cholesky.cu (blocked Cholesky with 32-wide
-panels + blocked triangular solves, one launch, sm_90a); on a CPU tensor
-it runs `cholesky_solve_plain`, the same blocked order in torch. There
-is no fallback between the two: a CUDA tensor reaches the kernel or the
-call raises.
+read from its lower triangle, and rhs (K,) or (K,N). On a CUDA tensor a
+(K,) rhs launches the hand-written kernel csrc/cholesky.cu (blocked
+Cholesky with 32-wide panels + blocked triangular solves, one launch,
+sm_90a; the dense BA's reduced solve) and a (K,N) rhs csrc/cholesky_many.cu
+(the same factorization, then the substitutions over tiles of 32 columns;
+the point covariances' reduced solve). On a CPU tensor either runs
+`cholesky_solve_plain`, the same blocked order in torch. There is no
+fallback between the two: a CUDA tensor reaches a kernel or the call
+raises. KERNEL.launches and KERNEL_MANY.launches count the calls of each.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ MAX_K = 4096  # CHOL_MAX_K of csrc/cholesky.cu (shared-memory vector)
 NB = 32  # panel width (CHOL_NB of csrc/cholesky.cu)
 
 KERNEL = Kernel("cholesky", "cholesky.cu", {"chol_solve_f32": [P, P, P, P, I, P]})
+KERNEL_MANY = Kernel("cholesky_many", "cholesky_many.cu", {"chol_solve_many_f32": [P, P, P, P, I, I, P]})
 
 
 def _solve_lower(L: torch.Tensor, b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
@@ -69,8 +73,8 @@ def cholesky_solve_plain(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve S x = rhs for SPD S (K,K) f32; rhs (K,) f32."""
-    if S.dim() != 2 or S.shape[0] != S.shape[1] or rhs.shape != (S.shape[0],):
+    """Solve S x = rhs for SPD S (K,K) f32; rhs (K,) or (K,N) f32."""
+    if S.dim() != 2 or S.shape[0] != S.shape[1] or rhs.dim() not in (1, 2) or rhs.shape[0] != S.shape[0]:
         raise ValueError(f"cholesky_solve: S {tuple(S.shape)} and rhs {tuple(rhs.shape)} do not match")
     if S.dtype != torch.float32 or rhs.dtype != torch.float32:
         raise TypeError("cholesky_solve: float32 only")
@@ -87,6 +91,11 @@ def cholesky_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     rhs = rhs.contiguous()
     work = torch.empty_like(S)
     x = torch.empty_like(rhs)
-    KERNEL.call("chol_solve_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(), K, stream_ptr(S))
-    KERNEL.launches += 1
+    if rhs.dim() == 1:
+        KERNEL.call("chol_solve_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(), K, stream_ptr(S))
+        KERNEL.launches += 1
+    elif rhs.shape[1] > 0:
+        KERNEL_MANY.call("chol_solve_many_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(),
+                         K, rhs.shape[1], stream_ptr(S))
+        KERNEL_MANY.launches += 1
     return x

@@ -14,6 +14,7 @@ import torch
 
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.ba.dense import DenseBAData
+from mpsfm_tpu_torch.ba.solver import BAData
 from mpsfm_tpu_torch.integration.bini import BiniInputs, BiniParams
 
 
@@ -25,6 +26,26 @@ def dense_ba_data(arrays: dict, device="cuda") -> DenseBAData:
     """mpsfm_tpu.ba.dense.DenseBAData fields -> DenseBAData of float32 tensors."""
     dev = resolve_device(device)
     return DenseBAData(**{f: _f32(arrays[f], dev) for f in DenseBAData._fields})
+
+
+def ba_data(arrays: dict, device="cuda") -> BAData:
+    """mpsfm_tpu.ba.solver.BAData fields -> BAData: float fields float32,
+    index fields (integer arrays) int64, absent optional tables None. The
+    block-sparse Schur tables (`bs`) are not ported: a problem that carries
+    them is refused."""
+    if arrays.get("bs") is not None:
+        raise ValueError("ba_data: the block-sparse Schur tables (bs) are not ported")
+    dev = resolve_device(device)
+
+    def conv(a):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a.astype(np.int64), device=dev)
+        return _f32(a, dev)
+
+    return BAData(**{f: conv(arrays.get(f)) for f in BAData._fields})
 
 
 def bini_inputs(arrays: dict, device="cuda") -> BiniInputs:

@@ -215,6 +215,10 @@ __device__ __forceinline__ void factor_diag(float (*D)[CHOL_NB + 1], float (*col
     __syncwarp();  // pv and col are written again by the next call
 }
 
+// SOLVE = false (csrc/cholesky_many.cu) factors only: rhs and x are not
+// read or written, the forward substitution runs on a zero vector, and W
+// holds U = L^T in its upper triangle when the kernel returns.
+template <bool SOLVE>
 __global__ void __launch_bounds__(CHOL_THREADS, 1)
 chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ rhs,
                   float* W, float* __restrict__ x, int K) {
@@ -253,7 +257,7 @@ chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ rhs,
             __syncwarp();
         }
     }
-    for (int i = tid; i < K; i += CHOL_THREADS) y[i] = rhs[i];
+    for (int i = tid; i < K; i += CHOL_THREADS) y[i] = SOLVE ? rhs[i] : 0.f;
     __syncthreads();
 
     // ---- the first diagonal block ----
@@ -344,6 +348,8 @@ chol_solve_kernel(const float* __restrict__ S, const float* __restrict__ rhs,
         }
     }
 
+    if constexpr (!SOLVE) return;
+
     // ---- backward: L^T x = y, i.e. U x = y with U = W's upper triangle ----
     float* part = opA;                   // part[w][r]: warp w's share of row r's dot product
     float* tri = opA + CHOL_WARPS * 32;  // tri[q][lane] = U[b0+q][b0+lane]
@@ -409,10 +415,10 @@ extern "C" int chol_solve_f32(const float* S, const float* rhs, float* work, flo
                               void* stream) {
     if (K < 1 || K > CHOL_MAX_K) return (int)cudaErrorInvalidValue;
     // the attribute belongs to the current device: set it on every launch
-    const cudaError_t err = cudaFuncSetAttribute(chol_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    const cudaError_t err = cudaFuncSetAttribute(chol_solve_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  (int)((SM_FIXED + CHOL_MAX_K) * sizeof(float)));
     if (err != cudaSuccess) return (int)err;
     const size_t smem = (SM_FIXED + (size_t)K) * sizeof(float);
-    chol_solve_kernel<<<1, CHOL_THREADS, smem, (cudaStream_t)stream>>>(S, rhs, work, x, K);
+    chol_solve_kernel<true><<<1, CHOL_THREADS, smem, (cudaStream_t)stream>>>(S, rhs, work, x, K);
     return (int)cudaGetLastError();
 }

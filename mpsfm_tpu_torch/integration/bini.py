@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from mpsfm_tpu_torch import resolve_device
+from mpsfm_tpu_torch.integration.bini_diag import deflated_pcg, deflation
 from mpsfm_tpu_torch.integration.bini_fused import (
     _dxm,
     _dxp,
@@ -288,6 +289,81 @@ def bini_gate_solve_batch_anchors(anch, prev, p: BiniParams, cov, *pairs):
     e_eff = torch.where(refine, e_fin, e0)
     info4 = torch.stack([e0, e_eff, refine.to(e0.dtype), aborted.to(e0.dtype)], -1).to(torch.float32)
     return z_out, info4
+
+
+# ---- uncertainty: diag(H⁻¹) at query pixels ----
+
+def take_z(z_batch, pos):
+    """z_batch[pos]: one lane of a batch of maps."""
+    return z_batch[pos]
+
+
+def resize_log_dev(zlog, shift, out_hw):
+    """log(resize_bilinear(exp(zlog + shift))) to out_hw = (H2, W2), with
+    cv2-style sampling (pixel centres, edge clamping): the downscaled z0 of
+    the int_covs grid, from the working log-depth on the device."""
+    d = torch.exp(zlog + shift)
+    H, W = d.shape
+    H2, W2 = out_hw
+
+    def centres(n_in, n_out):  # (i + 0.5)·n_in/n_out − 0.5, with n_in/n_out one float32 constant as XLA folds it
+        ratio = float(np.float32(n_in) / np.float32(n_out))
+        return (torch.arange(n_out, dtype=d.dtype, device=d.device) + 0.5) * ratio - 0.5
+
+    ys, xs = centres(H, H2), centres(W, W2)
+    x0, y0 = torch.floor(xs), torch.floor(ys)
+    fx = (xs - x0)[None, :]
+    fy = (ys - y0)[:, None]
+    x0i, y0i = x0.long(), y0.long()
+    x1i, y1i = (x0i + 1).clamp(0, W - 1), (y0i + 1).clamp(0, H - 1)
+    x0i, y0i = x0i.clamp(0, W - 1), y0i.clamp(0, H - 1)
+    v = (
+        d[y0i][:, x0i] * (1 - fx) * (1 - fy)
+        + d[y0i][:, x1i] * fx * (1 - fy)
+        + d[y1i][:, x0i] * (1 - fx) * fy
+        + d[y1i][:, x1i] * fx * fy
+    )
+    return torch.log(v.clamp_min(1e-8))
+
+
+def _diag_inverse_at_impl(inp: BiniInputs, p: BiniParams, z, rows, cols, chunk: int = 128):
+    """diag(H⁻¹) at the query pixels rows/cols (B,K) of each lane, by
+    deflated Jacobi-PCG indicator solves of p.cg_max_iter iterations, with
+    H the operator of the IRLS weights at z (B,H,W). Returns (B,K)
+    variances of log-depth. The near-kernel of H is its smooth gauge
+    modes; deflating {1, x, y} solves them exactly in a 3×3 system and
+    leaves PCG the local part (bini_diag.py)."""
+    wx, wy = _weights(z, p.k)
+    st, _, dg = _operator(inp, p, wx, wy)
+    return deflated_pcg(st, deflation(st, dg), rows, cols, p.cg_max_iter, chunk)
+
+
+def diag_inverse_at(inp: BiniInputs, p: BiniParams, z, rows, cols, chunk: int = 128):
+    """One image: fields and z (H,W), rows/cols (K,). Returns (K,)."""
+    return _diag_inverse_at_impl(_batched(inp), p, z[None], rows[None], cols[None], chunk)[0]
+
+
+def diag_inverse_at_batch(packed, p: BiniParams, rows, cols, chunk: int = 128):
+    """packed (B,11,H,W) with z0 the converged log-depth; rows/cols (B,Kp).
+    Returns (B,Kp)."""
+    return _diag_inverse_at_impl(_unpack(packed), p, packed[:, 0], rows, cols, chunk)
+
+
+def diag_inverse_at_batch_anchors(anch, rowcol, p: BiniParams, chunk: int, cov, *pairs):
+    """Anchor-transport variant of diag_inverse_at_batch; rowcol (B,2,Kp)
+    query rows and columns."""
+    packed = _assemble_batch_anchors(anch, cov, pairs)
+    return _diag_inverse_at_impl(_unpack(packed), p, packed[:, 0], rowcol[:, 0], rowcol[:, 1], chunk)
+
+
+def diag_inverse_gated_batch_anchors(anch, rowcol, p: BiniParams, chunk: int, cov, changed, *pairs):
+    """diag_inverse_at_batch_anchors gated on the changed flags (B,): when
+    no lane's integration changed, zeros (B,Kp). The JAX package's lax.cond
+    becomes a host branch (one read of the flags); when any lane changed,
+    every lane is solved, as the JAX package's branch does."""
+    if not bool((changed > 0.5).any()):
+        return torch.zeros((anch.shape[0], rowcol.shape[-1]), dtype=anch.dtype, device=anch.device)
+    return diag_inverse_at_batch_anchors(anch, rowcol, p, chunk, cov, *pairs)
 
 
 # ---- host-side builders (numpy; copies of the JAX package's) ----

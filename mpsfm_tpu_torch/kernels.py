@@ -6,7 +6,7 @@ built when this module is imported: the first wrapper call on a CUDA
 tensor builds what it needs, and `build_all()` builds every source at once
 with one nvcc process per source, all started together. Libraries land in
 `mpsfm_tpu_torch/_build/` (listed in .gitignore) under a name that hashes
-the source and the flags, so an edited source is rebuilt.
+the sources of csrc/ and the flags, so an edited source is rebuilt.
 """
 
 from __future__ import annotations
@@ -52,7 +52,9 @@ class Kernel:
         self._lib = None
 
     def _target(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        # the source and every file of csrc/ (a .cu may include another)
+        srcs = b"".join(p.read_bytes() for p in (self.source, *sorted(CSRC.glob("*.cu*"))))
+        h = hashlib.sha256(srcs + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         return BUILD_DIR / f"lib{self.name}-{h}.so"
 
     def _start_build(self):
@@ -121,6 +123,8 @@ def stream_ptr(t) -> int:
 
 def all_kernels():
     from mpsfm_tpu_torch.ba.cholesky import KERNEL as k1
+    from mpsfm_tpu_torch.ba.cholesky import KERNEL_MANY as k1_many
+    from mpsfm_tpu_torch.integration.bini_diag import KERNEL as k3
     from mpsfm_tpu_torch.integration.bini_fused import KERNEL as k2
 
-    return [k1, k2]
+    return [k1, k1_many, k2, k3]

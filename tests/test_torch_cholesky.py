@@ -20,9 +20,16 @@ float64 solve 1.1e-6 / 9.5e-7 / 2.8e-6 / 2.9e-6; residual 1.0e-6 /
 The card-only cases hold the kernel against the plain version on the
 card at both shifts and on the zeroed row and column, by the same
 absolute, relative and residual bounds.
+
+With many right-hand sides (rhs (K,N), the point covariances' solve) the
+plain version is held against jax.scipy.linalg.cho_factor + cho_solve at
+ragged K and N, atol 1e-4 and the relative and residual bounds of REL; on
+the card the kernel (csrc/cholesky_many.cu) against the plain version,
+at the covariances' shape and at ragged ones.
 """
 
 import jax.numpy as jnp
+import jax.scipy.linalg as jsl
 import numpy as np
 import pytest
 import torch
@@ -102,12 +109,28 @@ def test_cholesky_solve_k1024(rng):
     np.testing.assert_allclose(x, np.linalg.solve(S.astype(np.float64), b.astype(np.float64)), atol=1e-4)
 
 
+@pytest.mark.parametrize("K, N", [(6, 1), (42, 7), (198, 33), (390, 100)])
+def test_cholesky_solve_many_matches_jax(rng, K, N):
+    for shift, rel in REL.items():
+        S, _ = _spd(rng, K, shift)
+        B = rng.normal(size=(K, N)).astype(np.float32)
+        X = cholesky.cholesky_solve(torch.from_numpy(S), torch.from_numpy(B)).numpy()
+        Xj = np.asarray(jsl.cho_solve(jsl.cho_factor(jnp.asarray(S), lower=True), jnp.asarray(B)))
+        np.testing.assert_allclose(X, Xj, atol=1e-4)
+        assert _rel_gap(X, Xj) <= rel, shift
+        assert _residual(S, B, X) <= rel, shift
+
+
 def test_cholesky_solve_rejects_bad_input():
     S = torch.eye(4)
     with pytest.raises(ValueError):
         cholesky.cholesky_solve(S, torch.ones(3))
     with pytest.raises(TypeError):
         cholesky.cholesky_solve(S.double(), torch.ones(4, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        cholesky.cholesky_solve(S, torch.ones(3, 2))
+    with pytest.raises(ValueError):
+        cholesky.cholesky_solve(S, torch.ones(4, 2, 1))
 
 
 @pytest.fixture()
@@ -150,3 +173,23 @@ def test_kernel_clamped_pivot_on_card(rng, cuda, K, z):
     np.testing.assert_allclose(x, ref, rtol=0, atol=1e-4)
     assert _rel_gap(x, ref) <= REL[1.0]
     assert _residual(S, b, x) <= REL[1.0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K, N", [(6, 1), (390, 1000), (384, 24576), (1024, 33)])
+def test_kernel_many_matches_plain_on_card(rng, cuda, K, N):
+    """K1 with many right-hand sides: ragged last blocks (K = 6, 390) and
+    column tiles (N = 1, 1000, 33), the covariances' shape (384 × 24 576)."""
+    for shift, rel in REL.items():
+        S, _ = _spd(rng, K, shift)
+        B = rng.normal(size=(K, N)).astype(np.float32)
+        St, Bt = torch.from_numpy(S).to(cuda), torch.from_numpy(B).to(cuda)
+        n0 = cholesky.KERNEL_MANY.launches
+        X = cholesky.cholesky_solve(St, Bt)
+        torch.cuda.synchronize()
+        assert cholesky.KERNEL_MANY.launches == n0 + 1
+        ref = cholesky.cholesky_solve_plain(St, Bt)
+        torch.testing.assert_close(X, ref, rtol=0, atol=1e-4)
+        X, ref = X.cpu().numpy(), ref.cpu().numpy()
+        assert _rel_gap(X, ref) <= rel, shift
+        assert _residual(S, B, X) <= rel, shift

@@ -32,7 +32,8 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "mpsfm_tpu.")) or m == "mpsfm_tpu")
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 10 else 0)
+need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag", "mpsfm_tpu_torch.scene.image_priors"}
+sys.exit(1 if bad or len(names) < 14 or not need <= set(names) else 0)
 """
 
 
@@ -50,6 +51,8 @@ def test_converters_refuse_the_cpu_without_a_card(monkeypatch):
         convert.dense_ba_data(arrays)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.anchor_state(np.zeros((1, 6, 2)), np.zeros((1, 2)), np.zeros((1, 3, 3)), [])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.ba_data(chip_smoke.ba_arrays(chip_smoke.synthetic_bundle(2, 8)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dense.densify(chip_smoke.synthetic_bundle(2, 8), 2, 8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
