@@ -22,10 +22,14 @@
    CG iteration and against the design's floor (its two lane barriers
    per iteration with almost no arithmetic), its checks shown to fail
    the plain version turned into a kernel with a stale or dropped halo
-   at one CTA's seams; K3 (bini_diag.cu), the deflated PCG of diag(H⁻¹), at
-   8 images of 145×193 with 2048 queries each and 16 iterations,
-   bit-identical from run to run, timed beside its plain version, and its
-   check shown to fail a kernel without the deflation's projection.
+   at one CTA's seams; K3 (bini_diag.cu), the deflated PCG of diag(H⁻¹) on
+   thread-block clusters, at 8 images of 145×193 with 2048 queries each
+   and 16 iterations and at 2 images of 193×193 and of 290×387 with 64
+   queries each (grids above one block's shared memory), one launch each,
+   bit-identical from run to run, the cluster shape (C CTAs, R right-hand
+   sides) printed, timed beside its plain version at the main shapes, and
+   its check shown to fail a kernel without the deflation's projection and
+   one that drops p's halo row at a band edge.
 3. Drives the main path at full size, once to warm up and once measured
    with every launch count set to 0 just before: the mapper's refinement
    step in the order of the JAX package's Mapper (calculate_point_covs,
@@ -43,7 +47,10 @@
    weight, depth maps closer to the ground truth than their priors, and
    that every kernel entry point was launched.
 4. Runs the same chain at a small size on the card and on the CPU (plain
-   versions) and compares the results.
+   versions) and compares the results, with the depth std floored as on
+   the main path and unfloored (where K3's variances reach the depth rows
+   and must change sigma²); and compares the point covariances' scatter
+   path (no per-(point, camera) tables) card vs CPU.
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -98,9 +105,9 @@ K1_REL = {1.0: 1e-5, 0.01: 1e-4}
 # (fixed budget 1.7e-2 and 4.9e-3).
 K2_TOL = 1e-4
 # max |Δv| / v of K3's variances vs its plain version. Sound runs differ only in
-# the order of the dot products' sums (4.6e-6 on an H100); k3_phase shows that a
-# kernel that skips the deflation's projection (keeping the coarse start) fails
-# it (1.7e-2 on an H100).
+# the order of the dot products' sums (4.7e-6 on an H100); k3_phase shows that a
+# kernel that skips the deflation's projection (keeping the coarse start), or
+# that drops p's halo row at a band edge, fails it (1.7e-2 and 3.6e-1).
 K3_REL = 1e-3
 # the covariances and variances of the small chain, card vs CPU: max |Δcov| /
 # max |cov| and max |Δv| / v. The reduced camera system is ill-conditioned
@@ -299,12 +306,13 @@ def make_inputs(n_cams, n_pts, B, H, W, seed=SEED):
 
 # ---- the main path ----
 
-def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None):
+def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None, floor=INT_COV_FLOOR):
     """The refinement step on `device`, through the port's entry points,
     in the JAX package's order (Mapper: calculate_point_covs, then
-    Optimizer.ba_fused with the int_covs chain of _integrate_deferred).
-    Returns a dict of tensors and numbers; `phases` (a dict) collects wall
-    seconds per phase."""
+    Optimizer.ba_fused with the int_covs chain of _integrate_deferred),
+    with the depth std floored at `floor` of the prior depth (0: the
+    reference's unfloored mode). Returns a dict of tensors and numbers;
+    `phases` (a dict) collects wall seconds per phase."""
     import torch
 
     from mpsfm_tpu_torch import convert
@@ -349,7 +357,7 @@ def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None):
     flags = torch.stack([_changed_flag_dev(info4, b) for b in range(Bn)])
     varlog = diag_inverse_gated_batch_anchors(
         anch_ds, rowcol, p._replace(cg_max_iter=COV_CG_ITERS), 128, cov, flags, *pairs_ds)
-    sigma2 = torch.stack([_updated_unc_dev(varlog, b, sigma2_old[b], dprior[b], info4, b, INT_COV_FLOOR)
+    sigma2 = torch.stack([_updated_unc_dev(varlog, b, sigma2_old[b], dprior[b], info4, b, floor)
                           for b in range(Bn)])
     t0 = mark("int_covs", t0)
     logd = torch.stack([sample_logd(z[b], 0.0, gx[b], gy[b]) for b in range(Bn)])
@@ -554,26 +562,22 @@ def k1_many_phase(dev, rng):
     return out
 
 
-def k3_inputs(inputs, dev):
-    """K3's inputs at the main path's shapes: each lane's int_covs problem
-    (the downscaled grid, its anchors priced by the bundle's covariances)
-    with the resized prior as z, its operator, the deflation set-up and the
-    keypoint queries; and the iteration count."""
+def k3_inputs(pr, cov, dev, queries=None):
+    """K3's inputs for the priors `pr`: each lane's int_covs problem (the
+    downscaled grid, its anchors priced by the covariances `cov`) with the
+    resized prior as z, its operator, the deflation set-up and the first
+    `queries` keypoint queries (all by default); and the iteration count."""
     import torch
 
-    from mpsfm_tpu_torch import convert
-    from mpsfm_tpu_torch.ba.covariance import point_covariances
     from mpsfm_tpu_torch.integration import bini, bini_diag, bini_fused
 
-    pr = inputs.priors
-    cov = point_covariances(convert.ba_data(inputs.ba, device=dev))
     pairs = [(torch.as_tensor(s8[1], device=dev), torch.as_tensor(s8, device=dev)) for s8 in pr.stat8_ds]
     packed = bini._assemble_batch_anchors(torch.as_tensor(pr.anch_ds, device=dev), cov, pairs)
     inp = bini._unpack(packed)
     p = bini.BiniParams(**MAIN_BINI)
     wx, wy = bini_fused.weights(inp.z0, p.k)
     st, _, dg = bini._operator(inp, p, wx, wy)
-    rowcol = torch.as_tensor(pr.rowcol, device=dev)
+    rowcol = torch.as_tensor(pr.rowcol[:, :, :queries], device=dev)
     return st, bini_diag.deflation(st, dg), rowcol[:, 0], rowcol[:, 1], COV_CG_ITERS
 
 
@@ -592,36 +596,95 @@ def k3_no_projection():
         bini_diag.project = project
 
 
-def k3_phase(dev, inputs):
-    """K3 vs its plain version at the main path's shapes (8 × 145×193,
-    2048 queries a lane, 16 iterations): max |Δv| / v ≤ K3_REL,
-    bit-identical from run to run, and the same check failing a kernel
-    without the projection. Times of the kernel and the plain version."""
+@contextlib.contextmanager
+def k3_seam_fault(row, iters):
+    """The plain deflated PCG turned into a kernel whose band starting at
+    `row` reads p's halo row (row − 1, the band above's last row) as 0:
+    every H·p of the iterations is that of the sound kernel except on that
+    band's first row, where the upper edge sees p(row − 1) = 0. The coarse
+    start's H·x0 is analytic in the kernel and stays sound."""
     from mpsfm_tpu_torch.integration import bini_diag
 
-    args = k3_inputs(inputs, dev)
+    matvec = bini_diag.matvec
+    calls = [0]
+
+    def faulty(st, v):
+        out = matvec(st, v)
+        calls[0] += 1
+        if calls[0] % (iters + 1) != 1:  # per chunk of queries: H·x0 first, then H·p of each iteration
+            dropped = v.clone()
+            dropped[..., row - 1, :] = 0.0
+            out[..., row, :] = matvec(st, dropped)[..., row, :]
+        return out
+
+    bini_diag.matvec = faulty
+    try:
+        yield
+    finally:
+        bini_diag.matvec = matvec
+
+
+def k3_check(what, args):
+    """K3 vs its plain version: one launch, positive variances within
+    K3_REL, bit-identical from run to run. Returns (variances, the plain
+    version's, max |Δv| / v)."""
+    import torch
+
+    from mpsfm_tpu_torch.integration import bini_diag
+
     st, dfl, rows, cols, iters = args
     Bn, H, W = dfl.minv.shape
+    pl = bini_diag.plan(H, W)
     n0 = bini_diag.KERNEL.launches
     v = bini_diag.deflated_pcg(*args)
+    torch.cuda.synchronize()
     if bini_diag.KERNEL.launches != n0 + 1:
-        raise AssertionError("K3 was not launched")
+        raise AssertionError(f"K3 ({what}) made {bini_diag.KERNEL.launches - n0} launches, not 1")
     ref = bini_diag.deflated_pcg_plain(*args)
     rel = float(((v - ref).abs() / ref.abs()).max())
-    print(f"K3 deflated PCG (B={Bn} {H}x{W}, {rows.shape[1]} queries a lane, {iters} iterations): "
-          f"max|kernel - plain| / plain = {rel:.3e} (tolerance {K3_REL}); variances {float(ref.min()):.3e} .. "
-          f"{float(ref.max()):.3e}")
-    if not (bool((v > 0).all()) and rel <= K3_REL):
-        raise AssertionError(f"K3 disagrees with its plain version: {rel}")
-    if not bool((bini_diag.deflated_pcg(*args) == v).all()):
-        raise AssertionError("K3 is not bit-identical from run to run")
-    print("K3 run to run: bit-identical")
+    same = bool(torch.equal(bini_diag.deflated_pcg(*args), v))
+    print(f"K3 deflated PCG ({what}: B={Bn} {H}x{W}, {rows.shape[1]} queries a lane, {iters} iterations; "
+          f"clusters of C={pl.C} CTAs of {pl.bh} rows, R={pl.R} right-hand sides, {pl.smem} B of shared memory, "
+          f"{bini_diag.active_clusters(H, W, dfl.minv.device)} clusters co-resident): max|kernel - plain| / plain = "
+          f"{rel:.3e} (tolerance {K3_REL}); run to run {'bit-identical' if same else 'DIFFERENT'}; "
+          f"variances {float(ref.min()):.3e} .. {float(ref.max()):.3e}")
+    if not (bool((v > 0).all()) and rel <= K3_REL and same):
+        raise AssertionError(f"K3 ({what}) disagrees with its plain version ({rel}) or is not bit-identical ({same})")
+    return v, ref, rel
+
+
+def k3_phase(dev, inputs, cov):
+    """K3 vs its plain version at the main path's shapes (8 × 145×193,
+    2048 queries a lane, 16 iterations) and at 2 × 193×193 and 2 × 290×387
+    (grids above one block's shared memory, 64 queries a lane): max |Δv| /
+    v ≤ K3_REL, bit-identical from run to run, one launch each; the same
+    check failing a kernel without the projection and one that drops p's
+    halo row at a band edge. Times of the kernel and the plain version at
+    the main path's shapes."""
+    from mpsfm_tpu_torch.integration import bini_diag
+
+    args = k3_inputs(inputs.priors, cov, dev)
+    st, dfl, rows, cols, iters = args
+    Bn, H, W = dfl.minv.shape
+    v, ref, rel = k3_check("main path", args)
     with k3_no_projection():
         bad = bini_diag.deflated_pcg_plain(*args)
     rel_bad = float(((bad - ref).abs() / ref.abs()).max())
     print(f"K3 check vs a kernel without the projection: max|Δv| / v = {rel_bad:.3e} (tolerance {K3_REL})")
     if rel_bad <= K3_REL:
         raise AssertionError("K3's check would pass a kernel without the deflation's projection")
+    pl = bini_diag.plan(H, W)
+    seam = pl.bh * (pl.C // 2)  # the first row of the middle band
+    with k3_seam_fault(seam, iters):
+        bad = bini_diag.deflated_pcg_plain(*args)
+    rel_seam = float(((bad - ref).abs() / ref.abs()).max())
+    print(f"K3 check vs a kernel that drops p's halo row above band {pl.C // 2} (row {seam - 1}): max|Δv| / v = "
+          f"{rel_seam:.3e}, the sound kernel {rel:.3e} (tolerance {K3_REL})")
+    if rel_seam <= K3_REL:
+        raise AssertionError("K3's check would pass a kernel that drops a band's halo row")
+    for h, w in ((193, 193), (290, 387)):  # an aspect of 1:1; downscaled: False at 4:3
+        pr = synthetic_priors(inputs.bundle, 2, DOWNSCALE * h, DOWNSCALE * w)
+        k3_check(f"{h}x{w}", k3_inputs(pr, cov, dev, queries=64))
     ms = cuda_ms(lambda: bini_diag.deflated_pcg(*args), 2)
     plain_ms = cuda_ms(lambda: bini_diag.deflated_pcg_plain(*args), 1)
     n_rhs, n_pix = Bn * rows.shape[1], H * W
@@ -629,7 +692,10 @@ def k3_phase(dev, inputs):
     # (HZ)^T V 6, projection 5, r.z 2, p 2), 31 for the coarse start
     flops = float(n_rhs) * n_pix * (33 * iters + 31)
     nbytes = 4.0 * (7 * Bn * n_pix + 9 * Bn + H + W + 3 * n_rhs)  # maps, E^-1, axes, queries, variances
-    print(f"K3: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3:.4f} ms")
+    # the design's reads of the maps from L2: 12 distinct values a pixel-iteration, once per group of R
+    l2_bytes = 48.0 * Bn * -(-rows.shape[1] // pl.R) * n_pix * (iters + 1)
+    print(f"K3: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3:.4f} ms; "
+          f"the design's map reads from L2 {l2_bytes / 1e9:.1f} GB (R = {pl.R})")
     return dict(err=rel, ms=ms, plain_ms=plain_ms, library_ms=None,
                 ops_ms=flops / PEAK_F32 * 1e3, bytes_ms=nbytes / PEAK_BYTES * 1e3)
 
@@ -833,21 +899,44 @@ def k2_phase(dev, inputs):
 
 def small_reference(dev):
     """The chain at a small size on the card (kernels) and on the CPU
-    (plain versions): the same inputs must give the same result."""
+    (plain versions): the same inputs must give the same result, with the
+    depth std floored at INT_COV_FLOOR and unfloored (0, where K3's
+    variances reach the depth rows; sigma² must then differ from the
+    floored run's). Also the covariances' scatter path (no per-(point,
+    camera) tables), card vs CPU."""
+    import torch
+
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.ba.covariance import point_covariances
+
     inputs = make_inputs(**SMALL)
-    gpu = run_slice(inputs, dev)
-    cpu = run_slice(inputs, "cpu")
-    gaps = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in ("z", "quat", "t", "xyz")}
-    gaps["cost_rel"] = abs(gpu["cost"] - cpu["cost"]) / cpu["cost"]
-    gaps["cov_rel"] = float((gpu["cov"].cpu() - cpu["cov"]).abs().max() / cpu["cov"].abs().max())
-    for k in ("varlog", "sigma2"):
-        gaps[f"{k}_rel"] = float(((gpu[k].cpu() - cpu[k]).abs() / cpu[k].abs()).max())
     tol = dict(z=1e-3, quat=1e-4, t=1e-4, xyz=1e-3, cost_rel=1e-3, cov_rel=COV_REL, varlog_rel=VAR_REL,
                sigma2_rel=VAR_REL)
-    print(f"small chain, card vs CPU: {gaps} (tolerances {tol})")
-    bad = [k for k in tol if not gaps[k] <= tol[k]]
-    if bad:
-        raise AssertionError(f"card and CPU disagree on {bad}: {gaps}")
+    sigma2 = {}
+    for floor in (INT_COV_FLOOR, 0.0):
+        gpu = run_slice(inputs, dev, floor=floor)
+        cpu = run_slice(inputs, "cpu", floor=floor)
+        gaps = {k: float((gpu[k].cpu() - cpu[k]).abs().max()) for k in ("z", "quat", "t", "xyz")}
+        gaps["cost_rel"] = abs(gpu["cost"] - cpu["cost"]) / cpu["cost"]
+        gaps["cov_rel"] = float((gpu["cov"].cpu() - cpu["cov"]).abs().max() / cpu["cov"].abs().max())
+        for k in ("varlog", "sigma2"):
+            gaps[f"{k}_rel"] = float(((gpu[k].cpu() - cpu[k]).abs() / cpu[k].abs()).max())
+        print(f"small chain (depth std floor {floor}), card vs CPU: {gaps} (tolerances {tol})")
+        bad = [k for k in tol if not gaps[k] <= tol[k]]
+        if bad:
+            raise AssertionError(f"card and CPU disagree on {bad} at floor {floor}: {gaps}")
+        sigma2[floor] = gpu["sigma2"][:, :inputs.priors.Sd].cpu()[torch.as_tensor(inputs.priors.ptidx < inputs.P)]
+    if bool((sigma2[0.0] == sigma2[INT_COV_FLOOR]).any()):
+        raise AssertionError("an unfloored keypoint variance equals the floored one: K3's value does not reach sigma²")
+    print(f"small chain: unfloored sigma² / floored, median {float((sigma2[0.0] / sigma2[INT_COV_FLOOR]).median()):.4g}")
+    arrays = {**inputs.ba, "pc_r_slot": None, "pc_r_mask": None, "pc_d_slot": None, "pc_d_mask": None}
+    gpu = point_covariances(convert.ba_data(arrays, device=dev))
+    cpu = point_covariances(convert.ba_data(arrays, device="cpu"))
+    rel = float((gpu.cpu() - cpu).abs().max() / cpu.abs().max())
+    print(f"covariances by the scatter path (index_put_ accumulate), card vs CPU: max|Δcov| / max|cov| = {rel:.3e} "
+          f"(tolerance {COV_REL})")
+    if not rel <= COV_REL:
+        raise AssertionError(f"scatter-path covariances disagree card vs CPU: {rel}")
 
 
 def profile_slice(inputs, dev, top=12):
@@ -891,8 +980,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
-    from mpsfm_tpu_torch import kernels
+    from mpsfm_tpu_torch import convert, kernels
     from mpsfm_tpu_torch.ba import cholesky
+    from mpsfm_tpu_torch.ba.covariance import point_covariances
     from mpsfm_tpu_torch.integration import bini_diag, bini_fused
 
     dev = torch.device("cuda:0")
@@ -912,7 +1002,7 @@ def main():
     k1 = k1_phase(dev, np.random.default_rng(SEED))
     k1_many = k1_many_phase(dev, np.random.default_rng(SEED + 1))
     k2 = k2_phase(dev, inputs)
-    k3 = k3_phase(dev, inputs)
+    k3 = k3_phase(dev, inputs, point_covariances(convert.ba_data(inputs.ba, device=dev)))
 
     t = time.perf_counter()
     run_slice(inputs, dev)  # warm-up: the first call of each torch op loads its CUDA module
@@ -937,6 +1027,8 @@ def main():
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
+    if launches["bini_diag"] != 1:  # all 8 × 2048 right-hand sides in one launch
+        raise AssertionError(f"K3 made {launches['bini_diag']} launches on the main path, not 1")
 
     small_reference(dev)
     if "--profile" in sys.argv[1:]:

@@ -17,13 +17,15 @@ linspace(-1, 1) axes, HZ = H·Z and E⁻¹ = inv(ZᵀHZ + 1e-10·tr·I):
 
 (guards: a divisor below 1e-30 in magnitude becomes 1e-30). The set-up
 (`deflation`) is torch for both routes; `deflated_pcg` runs the iterations
-on the kernel csrc/bini_diag.cu for CUDA tensors (one block per right-hand
-side, one launch per call; KERNEL.launches counts the launches) and on
+on the kernel csrc/bini_diag.cu for CUDA tensors (one thread-block cluster
+of C CTAs per lane and group of R right-hand sides, C and R from `plan`,
+one launch per call; KERNEL.launches counts the launches) and on
 `deflated_pcg_plain` for CPU tensors, never one for the other.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -32,13 +34,73 @@ import torch
 from mpsfm_tpu_torch.integration.bini_fused import Stencil, _guard, _sum2, matvec
 from mpsfm_tpu_torch.kernels import I, P, Kernel, stream_ptr
 
-KERNEL = Kernel("bini_diag", "bini_diag.cu", {"bini_diag_pcg": [P] * 11 + [I] * 5 + [P]})
+KERNEL = Kernel("bini_diag", "bini_diag.cu", {
+    "bini_diag_pcg": [P] * 11 + [I] * 7 + [P],
+    "bini_diag_active_clusters": [I] * 4 + [P],
+})
 
-# constants of csrc/bini_diag.cu: p and r of one right-hand side live in
-# shared memory, 2 floats a pixel beside the reduction buffers
+# constants of csrc/bini_diag.cu (tests/test_torch_diag_inverse.py reads them
+# there): CTA threads, the most right-hand sides a cluster and CTAs a
+# cluster (the portable cluster size), and a CTA's shared memory
+THREADS = 512
+R_MAX = 8
+C_MAX = 8
 SMEM_BYTES = 232448
-RED_FLOATS = 2 * 32 * 4
-MAX_PIX = (SMEM_BYTES - 4 * RED_FLOATS) // 8
+
+
+class Plan(NamedTuple):
+    """K3's launch shape for one grid: clusters of C CTAs, each CTA a band
+    of bh rows, R right-hand sides a cluster, smem bytes a CTA."""
+
+    C: int
+    R: int
+    bh: int
+    smem: int
+
+
+def smem_bytes(H: int, W: int, C: int, R: int) -> int:
+    """Shared memory of one CTA: p and r of its band for R right-hand
+    sides, and two parities of (warp partials, the CTA's partial, the
+    cluster's sum) of 3R sums."""
+    bh = -(-H // C)
+    return 4 * (2 * R * bh * W + 2 * (THREADS // 32 + 2) * 3 * R)
+
+
+def plan(H: int, W: int) -> Plan:
+    """C and R for an H×W grid: R is the most right-hand sides whose bands
+    fit a CTA (at most R_MAX), and C the smallest power of two ≤ C_MAX
+    that reaches it. The bands of 145×193 (the main path) take C = 8,
+    R = 7; 387×387 takes C = 8, R = 1. Raises where C = 8, R = 1 does not
+    fit (a band of more than 29 002 pixels)."""
+    fits = {C: max((R for R in range(1, R_MAX + 1) if smem_bytes(H, W, C, R) <= SMEM_BYTES), default=0)
+            for C in (1, 2, 4, 8)}
+    R = fits[C_MAX]
+    if R == 0:
+        raise ValueError(f"bini_diag kernel: a {H}x{W} grid is above what a cluster of {C_MAX} CTAs holds "
+                         f"({-(-H // C_MAX)} rows of {W} pixels a band, {smem_bytes(H, W, C_MAX, 1)} bytes "
+                         f"of shared memory at one right-hand side; {SMEM_BYTES} fit)")
+    C = min(c for c, r in fits.items() if r == R)
+    return Plan(C, R, -(-H // C), smem_bytes(H, W, C, R))
+
+
+def pad_queries(rows, cols, R: int):
+    """rows, cols (B,K) padded with pixel (0, 0) to a multiple of R queries
+    (the kernel's groups); the padded queries' outputs are dropped."""
+    pad = -rows.shape[1] % R
+    if pad == 0:
+        return rows, cols
+    zeros = rows.new_zeros((rows.shape[0], pad))
+    return torch.cat([rows, zeros], 1), torch.cat([cols, zeros.to(cols.dtype)], 1)
+
+
+def active_clusters(H: int, W: int, device=None) -> int:
+    """How many of plan(H, W)'s clusters the card holds at once
+    (cudaOccupancyMaxActiveClusters)."""
+    pl = plan(H, W)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        KERNEL.call("bini_diag_active_clusters", H, W, pl.C, pl.R, ctypes.addressof(out))
+    return out.value
 
 
 class Deflation(NamedTuple):
@@ -139,21 +201,22 @@ def _pcg_cuda(st: Stencil, dfl: Deflation, rows, cols, iters: int):
         raise ValueError("bini_diag kernel: maps (B,H,W), hz (B,3,H,W) and einv (B,3,3) expected")
     if rows.shape != cols.shape or rows.dim() != 2 or rows.shape[0] != Bn or not rows.is_cuda or not cols.is_cuda:
         raise ValueError("bini_diag kernel: rows and cols (B,K) on the card expected")
-    if H * W > MAX_PIX:
-        raise ValueError(f"bini_diag kernel: {H}x{W} = {H * W} pixels; a block holds p and r of at most {MAX_PIX}")
+    pl = plan(H, W)
     Kq = rows.shape[1]
-    out = torch.empty((Bn, Kq), dtype=torch.float32, device=rows.device)
     if Bn * Kq == 0:
-        return out
+        return torch.empty((Bn, Kq), dtype=torch.float32, device=rows.device)
+    rows, cols = pad_queries(rows, cols, pl.R)
+    out = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
     ex, ey, pa, minv, hz, einv, lx, ly = (t.contiguous() for t in (*maps, dfl.hz, dfl.einv, dfl.lin_x, dfl.lin_y))
     r32, c32 = (t.to(torch.int32).contiguous() for t in (rows, cols))
-    KERNEL.call(
-        "bini_diag_pcg", ex.data_ptr(), ey.data_ptr(), pa.data_ptr(), minv.data_ptr(), hz.data_ptr(),
-        einv.data_ptr(), lx.data_ptr(), ly.data_ptr(), r32.data_ptr(), c32.data_ptr(), out.data_ptr(),
-        iters, Bn, H, W, Kq, stream_ptr(out),
-    )
+    with torch.cuda.device(out.device):
+        KERNEL.call(
+            "bini_diag_pcg", ex.data_ptr(), ey.data_ptr(), pa.data_ptr(), minv.data_ptr(), hz.data_ptr(),
+            einv.data_ptr(), lx.data_ptr(), ly.data_ptr(), r32.data_ptr(), c32.data_ptr(), out.data_ptr(),
+            iters, Bn, H, W, rows.shape[1], pl.C, pl.R, stream_ptr(out),
+        )
     KERNEL.launches += 1
-    return out
+    return out[:, :Kq]
 
 
 def deflated_pcg(st: Stencil, dfl: Deflation, rows, cols, iters: int, chunk: int = 128):

@@ -145,3 +145,18 @@ def test_point_covariances_on_card(cuda):
     assert cholesky.KERNEL_MANY.launches == n0 + 1
     ref = point_covariances(convert.ba_data(arrays, device="cpu"))
     assert float((cov.cpu() - ref).abs().max()) <= CARD_COV_REL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_point_covariances_scatter_path_on_card(cuda):
+    """Without the per-(point, camera) tables T is a scatter-add
+    (index_put_ with accumulate, whose atomics add in no fixed order on the
+    card); card against CPU."""
+    arrays = _arrays(_synthetic_ba_data(8, 256)._replace(**{k: None for k in PC_FIELDS}))
+    data = convert.ba_data(arrays, device=cuda)
+    assert data.pc_r_slot is None
+    cov = point_covariances(data)
+    torch.cuda.synchronize()
+    ref = point_covariances(convert.ba_data(arrays, device="cpu"))
+    assert bool(torch.isfinite(cov).all())
+    assert float((cov.cpu() - ref).abs().max()) <= CARD_COV_REL * float(ref.abs().max())

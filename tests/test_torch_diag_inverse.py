@@ -14,6 +14,9 @@ the updated variances and flags exactly (they are elementwise float32
 ops); Z bit for bit.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -207,6 +210,79 @@ def test_changed_flag_and_updated_unc_match_jax(rng):
             assert (got == old).all() == (lane != 0)
 
 
+# ---- K3's launch plan (csrc/bini_diag.cu), on the CPU ----
+
+def _cu_define(name):
+    src = (Path(bini_diag.__file__).resolve().parents[1] / "csrc" / "bini_diag.cu").read_text()
+    return re.search(rf"^#define {name} (.+)$", src, re.M).group(1).strip()
+
+
+def test_plan_constants_match_kernel_source():
+    """The planner's copies of the kernel's layout constants."""
+    assert int(_cu_define("DG_THREADS")) == bini_diag.THREADS
+    assert int(_cu_define("DG_RMAX")) == bini_diag.R_MAX
+    assert int(_cu_define("DG_CMAX")) == bini_diag.C_MAX
+    assert int(_cu_define("DG_SMEM_BYTES")) == bini_diag.SMEM_BYTES
+    assert _cu_define(r"DG_RED_FLOATS\(R\)") == "(2 * (DG_WARPS + 2) * 3 * (R))"
+    assert bini_diag.smem_bytes(145, 193, 8, 7) == 4 * (2 * 7 * 19 * 193 + 2 * (16 + 2) * 3 * 7)
+
+
+@pytest.mark.parametrize("orientation", ["landscape", "portrait"])
+def test_plan_fits_every_grid_up_to_387(orientation):
+    """Every grid with a long side up to 387 (the integration grid's cap,
+    int_covs at full or half size) gets a plan: a cluster of at most 8 CTAs,
+    1 to 8 right-hand sides, within one CTA's shared memory."""
+    seen = set()
+    for long in range(1, 388):
+        for short in range(1, long + 1):
+            H, W = (short, long) if orientation == "landscape" else (long, short)
+            pl = bini_diag.plan(H, W)
+            assert pl.C in (1, 2, 4, 8) and pl.C <= bini_diag.C_MAX and 1 <= pl.R <= bini_diag.R_MAX
+            assert pl.bh == -(-H // pl.C)
+            assert pl.smem == bini_diag.smem_bytes(H, W, pl.C, pl.R) <= bini_diag.SMEM_BYTES
+            # R is the most that fits at C_MAX, and no smaller C reaches it
+            assert bini_diag.smem_bytes(H, W, bini_diag.C_MAX, pl.R + 1) > bini_diag.SMEM_BYTES or pl.R == bini_diag.R_MAX
+            assert pl.C == 1 or bini_diag.smem_bytes(H, W, pl.C // 2, pl.R) > bini_diag.SMEM_BYTES
+            seen.add((pl.C, pl.R))
+    assert (8, 1) in seen and (1, 8) in seen
+
+
+@pytest.mark.parametrize("H, W, C, R", [
+    (145, 193, 8, 7),  # the main path's int_covs grid
+    (155, 193, 8, 7),
+    (193, 193, 8, 5),
+    (290, 387, 8, 2),  # downscaled: False at 4:3
+    (387, 387, 8, 1),
+    (48, 64, 1, 8),
+    (26, 1100, 8, 6),  # 4 rows a band: the eighth band is empty
+    (232, 1000, 8, 1),  # 29 000 pixels a band, the most that fits
+])
+def test_plan_examples(H, W, C, R):
+    pl = bini_diag.plan(H, W)
+    assert (pl.C, pl.R) == (C, R)
+
+
+@pytest.mark.parametrize("H, W", [(232, 1001), (233, 1000), (400, 600), (1000, 1000)])
+def test_plan_refuses_above_one_band_per_cta(H, W):
+    """The one refusal left: a band of C = 8 at R = 1 above a CTA's shared
+    memory (more than 29 002 pixels)."""
+    with pytest.raises(ValueError, match="above what a cluster of 8 CTAs holds"):
+        bini_diag.plan(H, W)
+
+
+@pytest.mark.parametrize("K, R", [(41, 7), (40, 5), (1, 8), (3, 1)])
+def test_pad_queries(rng, K, R):
+    """Queries are padded with pixel (0, 0) to a multiple of R; the real
+    ones keep their place."""
+    rows = torch.as_tensor(rng.integers(1, 50, (2, K)))
+    cols = torch.as_tensor(rng.integers(1, 50, (2, K)), dtype=torch.int32)
+    rp, cp = bini_diag.pad_queries(rows, cols, R)
+    Kp = -(-K // R) * R
+    assert rp.shape == cp.shape == (2, Kp) and rp.dtype == rows.dtype and cp.dtype == cols.dtype
+    assert torch.equal(rp[:, :K], rows) and torch.equal(cp[:, :K], cols)
+    assert (rp[:, K:] == 0).all() and (cp[:, K:] == 0).all()
+
+
 @pytest.fixture()
 def cuda():
     if not torch.cuda.is_available():
@@ -215,13 +291,18 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H, W", [(GH, GW), (145, 193), (26, 1100)])
-def test_kernel_matches_plain_on_card(rng, cuda, H, W):
+@pytest.mark.parametrize("H, W, K", [
+    (GH, GW, 40), (145, 193, 40), (26, 1100, 40),
+    (155, 193, 41), (193, 193, 41), (290, 387, 41), (387, 387, 41),
+])
+def test_kernel_matches_plain_on_card(rng, cuda, H, W, K):
     """K3 against its plain version on the card: 2 lanes of random
-    diagonally dominant stencils, 40 queries each (pixel (0, 0) among
-    them), 16 iterations; bit-identical from run to run, one launch. W =
-    64 divides the block's 1024 threads, 193 does not, 1100 exceeds them
-    (a thread's next pixel lies on the same row)."""
+    diagonally dominant stencils, K queries each (pixel (0, 0) among
+    them), 16 iterations; bit-identical from run to run, one launch. 48×64
+    is one CTA a cluster with 8 right-hand sides; the others take clusters
+    of 8 CTAs whose bands split H unevenly (26×1100: the eighth band is
+    empty); 155×193 and larger were refused by one block a right-hand side;
+    41 queries are no multiple of any R > 1 (padded queries)."""
     from mpsfm_tpu_torch.integration import bini_fused
 
     ex, ey, pa = (torch.as_tensor(rng.random((2, H, W), dtype=np.float32), device=cuda) for _ in range(3))
@@ -229,13 +310,14 @@ def test_kernel_matches_plain_on_card(rng, cuda, H, W):
     ey[..., -1, :] = 0.0
     st = bini_fused.Stencil(ex, ey, 1e-3 * pa)
     dfl = bini_diag.deflation(st, bini_fused.diag(st))
-    rows = torch.as_tensor(rng.integers(0, H, (2, 40)), device=cuda)
-    cols = torch.as_tensor(rng.integers(0, W, (2, 40)), device=cuda)
+    rows = torch.as_tensor(rng.integers(0, H, (2, K)), device=cuda)
+    cols = torch.as_tensor(rng.integers(0, W, (2, K)), device=cuda)
     rows[:, 0] = cols[:, 0] = 0
     n0 = bini_diag.KERNEL.launches
     v = bini_diag.deflated_pcg(st, dfl, rows, cols, 16)
     torch.cuda.synchronize()
     assert bini_diag.KERNEL.launches == n0 + 1
+    assert v.shape == (2, K)
     ref = bini_diag.deflated_pcg_plain(st, dfl, rows, cols, 16)
     assert bool((ref > 0).all())
     assert float(((v - ref).abs() / ref).max()) <= VAR_RTOL

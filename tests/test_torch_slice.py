@@ -9,8 +9,9 @@ queries), 8 cameras × 256 points, the main path's parameters.
 Tolerances: covariances max |Δ| ≤ 1e-3·max |cov| (test_torch_covariance.py), refined log-depth mean
 |Δz| < 1e-4, diag(H⁻¹) variances 1e-3 relative, updated depth variances
 1e-3 relative, quat/t 1e-4 and xyz 1e-3 absolute, cost 1e-3 relative, the
-same accepted count and info4 flags (so the same changed lanes). Gaps
-measured on the CPU: see ROADMAP.md queue 3.
+same accepted count and info4 flags (so the same changed lanes), with the
+depth std floored at 1% of the prior depth (the main path) and unfloored.
+Gaps measured on the CPU: see ROADMAP.md queue 3.
 """
 
 import jax.numpy as jnp
@@ -26,7 +27,7 @@ from mpsfm_tpu.integration import bini as jbini
 from mpsfm_tpu.scene import image_priors as jip
 
 
-def _jax_chain(inputs):
+def _jax_chain(inputs, floor=chip_smoke.INT_COV_FLOOR):
     pr = inputs.priors
     p = jbini.BiniParams(**chip_smoke.MAIN_BINI)
     cov = jcov(_synthetic_ba_data(inputs.C, inputs.P))
@@ -44,7 +45,7 @@ def _jax_chain(inputs):
         cov, flags, *pairs_ds)
     sigma2 = jnp.stack([
         jip._updated_unc_dev(varlog, jnp.int32(b), jnp.asarray(pr.sigma2[b]), jnp.asarray(pr.dprior[b]), info4,
-                             jnp.int32(b), jnp.float32(chip_smoke.INT_COV_FLOOR))
+                             jnp.int32(b), jnp.float32(floor))
         for b in range(B)
     ])
     dense = jdensify(inputs.bundle, inputs.C, inputs.P)
@@ -67,11 +68,7 @@ def _jax_chain(inputs):
                 trunc=float(trunc))
 
 
-def test_slice_matches_jax():
-    inputs = chip_smoke.make_inputs(**chip_smoke.SMALL)
-    j = _jax_chain(inputs)
-    t = chip_smoke.run_slice(inputs, "cpu")
-    chip_smoke.check_slice(t, inputs)
+def _assert_matches(t, j):
     np.testing.assert_array_equal(t["info4"].numpy()[:, 2:], j["info4"][:, 2:])
     assert np.abs(t["cov"].numpy() - j["cov"]).max() <= 1e-3 * np.abs(j["cov"]).max()
     assert np.abs(t["z"].numpy() - j["z"]).mean() < 1e-4
@@ -83,6 +80,32 @@ def test_slice_matches_jax():
     np.testing.assert_allclose(t["quat"].numpy(), j["quat"], atol=1e-4)
     np.testing.assert_allclose(t["t"].numpy(), j["t"], atol=1e-4)
     np.testing.assert_allclose(t["xyz"].numpy(), j["xyz"], atol=1e-3)
+
+
+def test_slice_matches_jax():
+    inputs = chip_smoke.make_inputs(**chip_smoke.SMALL)
+    j = _jax_chain(inputs)
+    t = chip_smoke.run_slice(inputs, "cpu")
+    chip_smoke.check_slice(t, inputs)
+    _assert_matches(t, j)
+
+
+def test_slice_unfloored_matches_jax():
+    """The chain with the depth std unfloored (floor 0, the reference's
+    unfloored mode): at the main path's 1% floor every keypoint takes the
+    floor, so only here do the diag(H⁻¹) variances reach the depth rows and
+    the BA. Every real keypoint's sigma² differs from the floored run's."""
+    inputs = chip_smoke.make_inputs(**chip_smoke.SMALL)
+    j = _jax_chain(inputs, 0.0)
+    t = chip_smoke.run_slice(inputs, "cpu", floor=0.0)
+    chip_smoke.check_slice(t, inputs)
+    _assert_matches(t, j)
+    floored = chip_smoke.run_slice(inputs, "cpu")
+    pr = inputs.priors
+    real = pr.ptidx < inputs.P
+    assert real.sum() > 0
+    assert (t["sigma2"].numpy()[:, :pr.Sd][real] != floored["sigma2"].numpy()[:, :pr.Sd][real]).all()
+    np.testing.assert_array_equal(t["varlog"].numpy(), floored["varlog"].numpy())  # the floor acts after K3
 
 
 def test_synthetic_bundle_is_the_bench_bundle():
