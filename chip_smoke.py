@@ -12,9 +12,12 @@
    strongly and less diagonally dominant, and on two with a zeroed row
    and column (a clamped pivot), timed beside its plain version and the
    library call at 384 and 1024; K1 with many right-hand sides
-   (cholesky_many.cu) at K = 384, N = 24 576 (the covariances' solve) and
-   K = 390, N = 1000 (ragged blocks and column tile), timed beside its
-   plain version and the library call; K2 (bini.cu) as the PCG core of
+   (cholesky_many.cu) at K = 384, N = 24 576 (the covariances' solve),
+   K = 390, N = 1000 (ragged blocks and column tile), K = 3072, N = 1000
+   (the JAX package's largest dense covariance) and K = 33, N = 24 577
+   (ragged, 4-byte staging), timed beside its plain version and the library
+   call, with its three kernels (factorization, tile packing, substitution)
+   timed apart; K2 (bini.cu) as the PCG core of
    the main path's first IRLS round (iteration counts within 1,
    bit-identical from run to run, and at B = 16 as two lane groups; a
    cooperative launch larger than the card refused) and as the
@@ -24,10 +27,12 @@
    the plain version turned into a kernel with a stale or dropped halo
    at one CTA's seams; K3 (bini_diag.cu), the deflated PCG of diag(H⁻¹) on
    thread-block clusters, at 8 images of 145×193 with 2048 queries each
-   and 16 iterations and at 2 images of 193×193 and of 290×387 with 64
-   queries each (grids above one block's shared memory), one launch each,
-   bit-identical from run to run, the cluster shape (C CTAs, R right-hand
-   sides) printed, timed beside its plain version at the main shapes, and
+   and 16 iterations and at 2 images of 193×193, of 290×387 and of 400×600
+   with 64 queries each (grids above one block's shared memory; 400×600
+   keeps its bands in global memory), one launch each, bit-identical from
+   run to run, the cluster shape (C CTAs, R right-hand sides) printed, the
+   global mode equal bit for bit to the shared-memory mode at the main grid,
+   timed beside its plain version at the main shapes and at 400×600, and
    its check shown to fail a kernel without the deflation's projection and
    one that drops p's halo row at a band edge.
 3. Drives the main path at full size, once to warm up and once measured
@@ -514,19 +519,42 @@ def k1_phase(dev, rng):
     return out
 
 
+def kernel_ms_by_name(fn, reps):
+    """Device ms per call of fn() by kernel name (torch.profiler over reps
+    calls, after one warm call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms[e.name] = ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
+    return ms
+
+
 def k1_many_phase(dev, rng):
     """K1 with many right-hand sides vs its plain version at K = 384, N =
-    24 576 (the covariances' solve at the bench bundle: 6C × 3P) and K =
-    390, N = 1000 (a ragged last block and column tile), on S = A·Aᵀ +
-    shift·K·I for each shift of K1_REL: max |ΔX| ≤ K1_TOL, max |ΔX| / max
-    |X| and ‖S·X − B‖_F / ‖B‖_F within the shift's bound. Times of the
-    kernel, the plain version and the library call at the main shape."""
+    24 576 (the covariances' solve at the bench bundle: 6C × 3P), K = 390,
+    N = 1000 (a ragged last block and column tile), K = 3072, N = 1000 (512
+    cameras, the JAX package's largest dense covariance) and K = 33, N =
+    24 577 (ragged, N no multiple of 4), on S = A·Aᵀ + shift·K·I for each
+    shift of K1_REL: max |ΔX| ≤ K1_TOL, max |ΔX| / max |X| and ‖S·X − B‖_F /
+    ‖B‖_F within the shift's bound. Times of the kernel, the plain version
+    and the library call at the main shape, and of the kernel's three
+    launches apart (the substitution beside its bound and the library's
+    substitution with a given factor)."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
 
     out = {}
-    for K, N in ((384, 24576), (390, 1000)):
+    for K, N in ((384, 24576), (390, 1000), (3072, 1000), (33, 24577)):
         parts, errs = [], []
         for shift, rel in K1_REL.items():
             A = rng.normal(size=(K, K)).astype(np.float32)
@@ -558,6 +586,19 @@ def k1_many_phase(dev, rng):
                      f"bound {max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3:.5f} ms")
             out = dict(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        ops_ms=flops / PEAK_F32 * 1e3, bytes_ms=nbytes / PEAK_BYTES * 1e3)
+            by_name = kernel_ms_by_name(lambda: cholesky.cholesky_solve(S1, B1), 10)
+            L1 = torch.linalg.cholesky(S1)
+            lib_subst = cuda_ms(lambda: torch.cholesky_solve(B1, L1), 10)
+            subst_bound = 2.0 * K * K * N / PEAK_F32 * 1e3
+            parts = {"factorization": "chol_solve_kernel", "packing": "chol_pack_kernel",
+                     "substitution": "chol_subst_kernel"}
+            got = {what: sum(t for n, t in by_name.items() if key in n) for what, key in parts.items()}
+            if not all(got.values()):
+                raise AssertionError(f"K1 many's kernels not all seen by the profiler: {sorted(by_name)}")
+            print(f"K1 many K={K}, N={N} by kernel (torch.profiler, 10 calls): "
+                  + ", ".join(f"{what} {t:.4f} ms" for what, t in got.items())
+                  + f"; substitution bound {subst_bound:.5f} ms (2 K^2 N FLOP), library's substitution "
+                  f"(torch.cholesky_solve, factor given) {lib_subst:.4f} ms")
         print(line)
     return out
 
@@ -643,8 +684,9 @@ def k3_check(what, args):
     ref = bini_diag.deflated_pcg_plain(*args)
     rel = float(((v - ref).abs() / ref.abs()).max())
     same = bool(torch.equal(bini_diag.deflated_pcg(*args), v))
+    where = "p and r in global memory" if pl.gmem else "p and r in shared memory"
     print(f"K3 deflated PCG ({what}: B={Bn} {H}x{W}, {rows.shape[1]} queries a lane, {iters} iterations; "
-          f"clusters of C={pl.C} CTAs of {pl.bh} rows, R={pl.R} right-hand sides, {pl.smem} B of shared memory, "
+          f"clusters of C={pl.C} CTAs of {pl.bh} rows, R={pl.R} right-hand sides, {where}, {pl.smem} B of shared memory, "
           f"{bini_diag.active_clusters(H, W, dfl.minv.device)} clusters co-resident): max|kernel - plain| / plain = "
           f"{rel:.3e} (tolerance {K3_REL}); run to run {'bit-identical' if same else 'DIFFERENT'}; "
           f"variances {float(ref.min()):.3e} .. {float(ref.max()):.3e}")
@@ -655,12 +697,16 @@ def k3_check(what, args):
 
 def k3_phase(dev, inputs, cov):
     """K3 vs its plain version at the main path's shapes (8 × 145×193,
-    2048 queries a lane, 16 iterations) and at 2 × 193×193 and 2 × 290×387
-    (grids above one block's shared memory, 64 queries a lane): max |Δv| /
-    v ≤ K3_REL, bit-identical from run to run, one launch each; the same
-    check failing a kernel without the projection and one that drops p's
-    halo row at a band edge. Times of the kernel and the plain version at
-    the main path's shapes."""
+    2048 queries a lane, 16 iterations) and at 2 × 193×193, 2 × 290×387
+    (grids above one block's shared memory) and 2 × 400×600 (bands in global
+    memory), 64 queries a lane: max |Δv| / v ≤ K3_REL, bit-identical from
+    run to run, one launch each; the same check failing a kernel without the
+    projection and one that drops p's halo row at a band edge; the global
+    mode equal bit for bit to the shared-memory mode at the main grid (64
+    queries a lane). Times of the kernel and the plain version at the main
+    path's shapes and at 400×600, and of both modes at the main grid."""
+    import torch
+
     from mpsfm_tpu_torch.integration import bini_diag
 
     args = k3_inputs(inputs.priors, cov, dev)
@@ -685,6 +731,28 @@ def k3_phase(dev, inputs, cov):
     for h, w in ((193, 193), (290, 387)):  # an aspect of 1:1; downscaled: False at 4:3
         pr = synthetic_priors(inputs.bundle, 2, DOWNSCALE * h, DOWNSCALE * w)
         k3_check(f"{h}x{w}", k3_inputs(pr, cov, dev, queries=64))
+    # bands of 50 rows of 600 pixels: above a CTA's shared memory at R = 1, global mode
+    big = k3_inputs(synthetic_priors(inputs.bundle, 2, DOWNSCALE * 400, DOWNSCALE * 600), cov, dev, queries=64)
+    if not bini_diag.plan(400, 600).gmem:
+        raise AssertionError("the 400x600 plan should keep its bands in global memory")
+    k3_check("400x600, global memory", big)
+    big_ms = cuda_ms(lambda: bini_diag.deflated_pcg(*big), 2)
+    big_plain_ms = cuda_ms(lambda: bini_diag.deflated_pcg_plain(*big), 1)
+    print(f"K3 at 2 x 400x600, 64 queries a lane (global memory): kernel {big_ms:.3f} ms, plain {big_plain_ms:.3f} ms")
+    # the global mode at the main grid's (C, R): the shared-memory mode's arithmetic, bit for bit
+    few = k3_inputs(inputs.priors, cov, dev, queries=64)
+    pl_g = pl._replace(gmem=True, smem=bini_diag.smem_bytes(H, W, pl.C, pl.R, gmem=True))
+    shared = bini_diag._pcg_cuda(*few)
+    glob = bini_diag._pcg_cuda(*few, pl=pl_g)
+    torch.cuda.synchronize()
+    if not torch.equal(glob, shared):
+        raise AssertionError(f"K3's global mode differs from its shared-memory mode at {H}x{W}: "
+                             f"max |Δv| / v {float(((glob - shared).abs() / shared.abs()).max())}")
+    shared_ms = cuda_ms(lambda: bini_diag._pcg_cuda(*few), 3)
+    glob_ms = cuda_ms(lambda: bini_diag._pcg_cuda(*few, pl=pl_g), 3)
+    print(f"K3 global vs shared memory at B={Bn} {H}x{W}, 64 queries a lane, C={pl.C} R={pl.R}: bit-identical; "
+          f"shared {shared_ms:.3f} ms, global {glob_ms:.3f} ms ({bini_diag.active_clusters(H, W, dev, pl_g)} "
+          f"clusters co-resident in global mode)")
     ms = cuda_ms(lambda: bini_diag.deflated_pcg(*args), 2)
     plain_ms = cuda_ms(lambda: bini_diag.deflated_pcg_plain(*args), 1)
     n_rhs, n_pix = Bn * rows.shape[1], H * W

@@ -88,11 +88,14 @@ def variants(src):
     return head + body, head_nm + body_nm
 
 
-def sass_loops(lib, fn):
-    """(instruction count, opcode counts) of each loop of fn with an FMUL
-    (the pixel passes), in program order."""
+def sass_loops(lib, prefix):
+    """(instruction count, opcode counts) of each loop with an FMUL (the
+    pixel passes), in program order, of the function whose mangled name
+    starts with prefix."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", "-fun", fn, lib], capture_output=True, text=True, check=True).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    sass = next(f for f in funcs if f.startswith(prefix))
     ins = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
     index = {a: i for i, (a, _) in enumerate(ins)}
     loops = []
@@ -137,10 +140,10 @@ def main():
     r32, c32 = (t.to(torch.int32).contiguous() for t in (rp, cp))
     maps = [t.contiguous() for t in (st.ex, st.ey, st.pa, dfl.minv, dfl.hz, dfl.einv, dfl.lin_x, dfl.lin_y)]
 
-    def run(k):
+    def run(k):  # the shared-memory mode (the main path's plan), one cluster a group
         out = torch.empty(rp.shape, device=dev)
-        k.call("bini_diag_pcg", *[t.data_ptr() for t in maps], r32.data_ptr(), c32.data_ptr(), out.data_ptr(), iters,
-               Bn, H, W, rp.shape[1], pl.C, pl.R, kernels.stream_ptr(out))
+        k.call("bini_diag_pcg", *[t.data_ptr() for t in maps], r32.data_ptr(), c32.data_ptr(), out.data_ptr(), None,
+               iters, Bn, H, W, rp.shape[1], pl.C, pl.R, 0, Bn * rp.shape[1] // pl.R, kernels.stream_ptr(out))
         return out
 
     times = {"kernel": [], "no_maps": []}
@@ -167,8 +170,7 @@ def main():
     for name, c in zip(PHASES[1:], per_iter):
         print(f"  {name:24s} {c:8.0f}")
 
-    fn = f"_Z16bini_diag_kernelILi{pl.R}EEvPKfS1_S1_S1_S1_S1_S1_S1_PKiS3_Pfiiiii"
-    loops = sass_loops(str(bini_diag.KERNEL._target()), fn)
+    loops = sass_loops(str(bini_diag.KERNEL._target()), f"_Z16bini_diag_kernelILi{pl.R}ELb0EE")
     names = ["coarse start, r", "coarse start, p", "pass p.Hp", "pass r, (HZ)^T M^-1 r", "pass r.z", "pass p"]
     for name, (n, ops) in zip(names, loops):
         fp = ops["FADD"] + ops["FMUL"]

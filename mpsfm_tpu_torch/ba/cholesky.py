@@ -6,8 +6,9 @@ read from its lower triangle, and rhs (K,) or (K,N). On a CUDA tensor a
 (K,) rhs launches the hand-written kernel csrc/cholesky.cu (blocked
 Cholesky with 32-wide panels + blocked triangular solves, one launch,
 sm_90a; the dense BA's reduced solve) and a (K,N) rhs csrc/cholesky_many.cu
-(the same factorization, then the substitutions over tiles of 32 columns;
-the point covariances' reduced solve). On a CPU tensor either runs
+(the same factorization, L's 32×32 tiles packed with each diagonal block
+inverted, then register-tiled blocked substitutions over tiles of 64
+columns; the point covariances' reduced solve). On a CPU tensor either runs
 `cholesky_solve_plain`, the same blocked order in torch. There is no
 fallback between the two: a CUDA tensor reaches a kernel or the call
 raises. KERNEL.launches and KERNEL_MANY.launches count the calls of each.
@@ -24,6 +25,13 @@ NB = 32  # panel width (CHOL_NB of csrc/cholesky.cu)
 
 KERNEL = Kernel("cholesky", "cholesky.cu", {"chol_solve_f32": [P, P, P, P, I, P]})
 KERNEL_MANY = Kernel("cholesky_many", "cholesky_many.cu", {"chol_solve_many_f32": [P, P, P, P, I, I, P]})
+
+
+def many_work_floats(K: int) -> int:
+    """Floats of csrc/cholesky_many.cu's workspace at K: the packed 32×32
+    tiles of L's lower triangle in two layouts (F, G), then U = Lᵀ (K×K)."""
+    nblk = -(-K // NB)
+    return 2 * nblk * (nblk + 1) // 2 * NB * NB + K * K
 
 
 def _solve_lower(L: torch.Tensor, b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
@@ -89,7 +97,7 @@ def cholesky_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cholesky_solve: K={K} exceeds the kernel's {MAX_K}")
     S = S.contiguous()
     rhs = rhs.contiguous()
-    work = torch.empty_like(S)
+    work = torch.empty(K * K if rhs.dim() == 1 else many_work_floats(K), dtype=S.dtype, device=S.device)
     x = torch.empty_like(rhs)
     if rhs.dim() == 1:
         KERNEL.call("chol_solve_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(), K, stream_ptr(S))

@@ -33,8 +33,24 @@
 // barrier too, since neighbours read p. Each product and sum of a pixel is
 // rounded as the plain version rounds it (__fmul_rn, __fadd_rn, never
 // contracted into an fma). integration/bini_diag.plan picks C and R from
-// (H, W); a grid above what C = 8, R = 1 holds (ceil(H/8) W <= 29 002 pixels a
-// band) is refused.
+// (H, W).
+//
+// Global mode (template switch kGmem), for a grid whose band does not fit a
+// CTA's shared memory at C = 8, R = 1 (ceil(H/8) W > 29 002 pixels): p and r
+// of a band live in a global workspace the wrapper allocates, CTA slice
+// ws + blockIdx.x 2 R bh W, and the halo rows are read from the neighbouring
+// CTAs' slices through plain global pointers. Every pass, sum and rounding is
+// the shared-memory mode's, so at the same (C, R) the two modes give
+// bit-identical variances. The halo reads rely on the cluster barriers alone:
+// cluster.sync() is barrier.cluster.arrive (.release by default) and
+// barrier.cluster.wait (.acquire by default), a release-acquire pattern at
+// cluster scope that orders the CTAs' global stores as it orders their
+// shared ones (PTX ISA, barrier.cluster), so no fence is added. The launch
+// holds at most as many clusters as the card runs at once, each looping over
+// groups (cid += clusters); the end-of-group cluster barrier keeps a group's
+// first writes of a slice after every neighbour's last read of it. The
+// workspace is then clusters C 2 R bh W floats (~15 MB a cluster at 400 x 600,
+// R = 8). The shared-memory mode launches one cluster a group.
 //
 // What bounds it on the H100: per pixel-iteration the algorithm does 33 FLOP
 // (this design ~46, applying H p twice). At the main path's 8 x 2048
@@ -152,30 +168,23 @@ __device__ __forceinline__ void proj_coef(const float (&g)[3 * R], const float (
                                      __fmul_rn(g[3 * k + 2], E[6 + m]));
 }
 
+// One group of R right-hand sides (cluster id cid: lane b, group of R queries)
+// on this CTA's band: p and r [R][bh W] each, p_up / p_dn the first pixel of
+// the neighbouring bands' halo rows (their last / first row of p).
 template <int R>
-__global__ void __launch_bounds__(DG_THREADS, 1)
-bini_diag_kernel(const float* __restrict__ ex_all, const float* __restrict__ ey_all,
-                 const float* __restrict__ pa_all, const float* __restrict__ minv_all,
-                 const float* __restrict__ hz_all, const float* __restrict__ einv_all,
-                 const float* __restrict__ lin_x, const float* __restrict__ lin_y,
-                 const int* __restrict__ rows, const int* __restrict__ cols, float* __restrict__ out,
-                 int iters, int H, int W, int Kq, int bh) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int C = (int)cluster.num_blocks();
-    const int rank = (int)cluster.block_rank();
-    const int cid = blockIdx.x / C;  // the cluster: lane b, group of R queries
+__device__ __forceinline__ void solve_group(const float* __restrict__ ex_all, const float* __restrict__ ey_all,
+                                            const float* __restrict__ pa_all, const float* __restrict__ minv_all,
+                                            const float* __restrict__ hz_all, const float* __restrict__ einv_all,
+                                            const float* __restrict__ lin_x, const float* __restrict__ lin_y,
+                                            const int* __restrict__ rows, const int* __restrict__ cols,
+                                            float* __restrict__ out, int iters, int H, int W, int Kq, int bh,
+                                            cg::cluster_group& cluster, int C, int rank, int cid, float* p, float* r,
+                                            const float* p_up, const float* p_dn, float* red) {
     const int groups = Kq / R;
     const int b = cid / groups;
     const int q0 = b * Kq + (cid - b * groups) * R;
     const int N = H * W, NB = bh * W;
     const int r0 = min(rank * bh, H), nr = min(bh, H - r0), nb = nr * W;
-
-    extern __shared__ __align__(16) float smem[];
-    float* p = smem;           // [R][NB]
-    float* r = smem + R * NB;  // [R][NB]
-    float* red = smem + 2 * R * NB;
-    const float* p_up = rank > 0 ? cluster.map_shared_rank(p, rank - 1) + (bh - 1) * W : nullptr;  // its last row
-    const float* p_dn = rank + 1 < C ? cluster.map_shared_rank(p, rank + 1) : nullptr;             // its first row
 
     const size_t off = (size_t)b * N;
     const int base = r0 * W;  // global index of the band's first pixel
@@ -346,22 +355,59 @@ bini_diag_kernel(const float* __restrict__ ex_all, const float* __restrict__ ey_
         for (int k = 0; k < R; ++k)
             if (qloc[k] >= 0) out[q0 + k] = xq[k];
     }
-    cluster.sync();  // no CTA leaves while another may still read its shared memory
+    cluster.sync();  // no CTA leaves, or starts its next group, while another may still read its p
 }
 
-static size_t smem_bytes(int H, int W, int C, int R) {
+// groups = B Kq / R clusters' worth of work. Shared-memory mode: one cluster a
+// group, p and r in the CTA's shared memory, halos over DSMEM. Global mode:
+// gridDim.x / C clusters, each looping over groups, p and r in the CTA's
+// slice of ws.
+template <int R, bool kGmem>
+__global__ void __launch_bounds__(DG_THREADS, 1)
+bini_diag_kernel(const float* __restrict__ ex_all, const float* __restrict__ ey_all,
+                 const float* __restrict__ pa_all, const float* __restrict__ minv_all,
+                 const float* __restrict__ hz_all, const float* __restrict__ einv_all,
+                 const float* __restrict__ lin_x, const float* __restrict__ lin_y,
+                 const int* __restrict__ rows, const int* __restrict__ cols, float* __restrict__ out, float* ws,
+                 int iters, int H, int W, int Kq, int bh, int groups) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int C = (int)cluster.num_blocks();
+    const int rank = (int)cluster.block_rank();
+    const int NB = bh * W;
+    extern __shared__ __align__(16) float smem[];
+    if constexpr (kGmem) {
+        const size_t slice = 2 * (size_t)R * NB;
+        float* p = ws + blockIdx.x * slice;  // [R][NB]: the slice of CTA rank of cluster blockIdx.x / C
+        const float* p_up = rank > 0 ? p - slice + (bh - 1) * W : nullptr;  // its last row
+        const float* p_dn = rank + 1 < C ? p + slice : nullptr;             // its first row
+        for (int cid = blockIdx.x / C; cid < groups; cid += gridDim.x / C)
+            solve_group<R>(ex_all, ey_all, pa_all, minv_all, hz_all, einv_all, lin_x, lin_y, rows, cols, out, iters, H,
+                           W, Kq, bh, cluster, C, rank, cid, p, p + R * NB, p_up, p_dn, smem);
+    } else {
+        float* p = smem;  // [R][NB], then r [R][NB], then the reduction buffers
+        const float* p_up = rank > 0 ? cluster.map_shared_rank(p, rank - 1) + (bh - 1) * W : nullptr;
+        const float* p_dn = rank + 1 < C ? cluster.map_shared_rank(p, rank + 1) : nullptr;
+        solve_group<R>(ex_all, ey_all, pa_all, minv_all, hz_all, einv_all, lin_x, lin_y, rows, cols, out, iters, H, W,
+                       Kq, bh, cluster, C, rank, blockIdx.x / C, p, p + R * NB, p_up, p_dn, p + 2 * R * NB);
+    }
+}
+
+static size_t smem_bytes(int H, int W, int C, int R, bool gmem) {
     const size_t bh = (H + C - 1) / C;
-    return (2 * (size_t)R * bh * W + DG_RED_FLOATS(R)) * sizeof(float);
+    return ((gmem ? 0 : 2 * (size_t)R * bh * W) + DG_RED_FLOATS(R)) * sizeof(float);
 }
 
-template <int R>
+// slots: the clusters launched (global mode; the shared-memory mode launches
+// one a group)
+template <int R, bool kGmem>
 static cudaError_t launch(const float* ex, const float* ey, const float* pa, const float* minv, const float* hz,
                           const float* einv, const float* lin_x, const float* lin_y, const int* rows, const int* cols,
-                          float* out, int iters, int B, int H, int W, int Kq, int C, cudaStream_t stream,
-                          int* active) {
-    const size_t smem = smem_bytes(H, W, C, R);
-    const int bh = (H + C - 1) / C;
-    cudaError_t err = cudaFuncSetAttribute(bini_diag_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                          float* out, float* ws, int iters, int B, int H, int W, int Kq, int C, int slots,
+                          cudaStream_t stream, int* active) {
+    const size_t smem = smem_bytes(H, W, C, R, kGmem);
+    const int bh = (H + C - 1) / C, groups = B * (Kq / R);
+    auto kernel = bini_diag_kernel<R, kGmem>;
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -369,33 +415,36 @@ static cudaError_t launch(const float* ex, const float* ey, const float* pa, con
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)(B * (Kq / R) * C));
+    cfg.gridDim = dim3((unsigned)((kGmem ? slots : groups) * C));
     cfg.blockDim = dim3(DG_THREADS);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    err = cudaOccupancyMaxActiveClusters(active, bini_diag_kernel<R>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
     if (err != cudaSuccess) return err;
     if (out == nullptr) return cudaSuccess;  // the occupancy query alone
     if (*active < 1) return cudaErrorLaunchOutOfResources;
-    err = cudaLaunchKernelEx(&cfg, bini_diag_kernel<R>, ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out,
-                             iters, H, W, Kq, bh);
+    if (kGmem && (ws == nullptr || slots < 1 || slots > groups)) return cudaErrorInvalidValue;
+    err = cudaLaunchKernelEx(&cfg, kernel, ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out, ws, iters, H, W,
+                             Kq, bh, groups);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
 }
 
 static cudaError_t dispatch(const float* ex, const float* ey, const float* pa, const float* minv, const float* hz,
                             const float* einv, const float* lin_x, const float* lin_y, const int* rows,
-                            const int* cols, float* out, int iters, int B, int H, int W, int Kq, int C, int R,
-                            cudaStream_t stream, int* active) {
+                            const int* cols, float* out, float* ws, int iters, int B, int H, int W, int Kq, int C,
+                            int R, int gmem, int slots, cudaStream_t stream, int* active) {
     if (B < 1 || H < 1 || W < 1 || iters < 0 || R < 1 || R > DG_RMAX || C < 1 || C > DG_CMAX || (C & (C - 1)) ||
-        Kq < R || Kq % R || smem_bytes(H, W, C, R) > DG_SMEM_BYTES)
+        Kq < R || Kq % R || smem_bytes(H, W, C, R, gmem) > DG_SMEM_BYTES)
         return cudaErrorInvalidValue;
-#define DG_CASE(RR)                                                                                               \
-    case RR:                                                                                                      \
-        return launch<RR>(ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out, iters, B, H, W, Kq, C, stream, \
-                          active);
+#define DG_CASE(RR)                                                                                                \
+    case RR:                                                                                                       \
+        return gmem ? launch<RR, true>(ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out, ws, iters, B, H, W, \
+                                       Kq, C, slots, stream, active)                                                \
+                    : launch<RR, false>(ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out, ws, iters, B, H, \
+                                        W, Kq, C, slots, stream, active);
     switch (R) {
         DG_CASE(1)
         DG_CASE(2)
@@ -411,22 +460,25 @@ static cudaError_t dispatch(const float* ex, const float* ey, const float* pa, c
 }
 
 // ex, ey, pa, minv (B,H,W); hz (B,3,H,W); einv (B,3,3); lin_x (W,); lin_y (H,);
-// rows, cols (B,Kq) int32 query pixels, Kq a multiple of R; out (B,Kq). One
-// launch of B Kq / R clusters of C CTAs. Returns cudaGetLastError() after the
-// launch, or cudaErrorLaunchOutOfResources where not one cluster fits the card.
+// rows, cols (B,Kq) int32 query pixels, Kq a multiple of R; out (B,Kq). gmem 0:
+// one launch of B Kq / R clusters of C CTAs, ws unused. gmem 1: one launch of
+// `slots` clusters (1 <= slots <= B Kq / R), ws holding slots C 2 R bh W
+// floats. Returns cudaGetLastError() after the launch, or
+// cudaErrorLaunchOutOfResources where not one cluster fits the card.
 extern "C" int bini_diag_pcg(const float* ex, const float* ey, const float* pa, const float* minv,
                              const float* hz, const float* einv, const float* lin_x, const float* lin_y,
-                             const int* rows, const int* cols, float* out, int iters, int B, int H, int W,
-                             int Kq, int C, int R, void* stream) {
+                             const int* rows, const int* cols, float* out, float* ws, int iters, int B, int H, int W,
+                             int Kq, int C, int R, int gmem, int slots, void* stream) {
     int active = 0;
     if (out == nullptr) return (int)cudaErrorInvalidValue;
-    return (int)dispatch(ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out, iters, B, H, W, Kq, C, R,
-                         (cudaStream_t)stream, &active);
+    return (int)dispatch(ex, ey, pa, minv, hz, einv, lin_x, lin_y, rows, cols, out, ws, iters, B, H, W, Kq, C, R,
+                         gmem, slots, (cudaStream_t)stream, &active);
 }
 
-// How many clusters of C CTAs at R right-hand sides the current card holds at
-// once for an H x W grid (cudaOccupancyMaxActiveClusters), in *active.
-extern "C" int bini_diag_active_clusters(int H, int W, int C, int R, int* active) {
+// How many clusters of C CTAs at R right-hand sides, in the mode gmem, the
+// current card holds at once for an H x W grid
+// (cudaOccupancyMaxActiveClusters), in *active.
+extern "C" int bini_diag_active_clusters(int H, int W, int C, int R, int gmem, int* active) {
     return (int)dispatch(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, 0, 1, H, W, R, C, R, nullptr, active);
+                         nullptr, nullptr, 0, 1, H, W, R, C, R, gmem, 1, nullptr, active);
 }

@@ -19,7 +19,9 @@ linspace(-1, 1) axes, HZ = H·Z and E⁻¹ = inv(ZᵀHZ + 1e-10·tr·I):
 (`deflation`) is torch for both routes; `deflated_pcg` runs the iterations
 on the kernel csrc/bini_diag.cu for CUDA tensors (one thread-block cluster
 of C CTAs per lane and group of R right-hand sides, C and R from `plan`,
-one launch per call; KERNEL.launches counts the launches) and on
+p and r of a band in the CTA's shared memory or, where a band does not fit
+it, in a global workspace; one launch per call; KERNEL.launches counts the
+launches) and on
 `deflated_pcg_plain` for CPU tensors, never one for the other.
 """
 
@@ -35,8 +37,8 @@ from mpsfm_tpu_torch.integration.bini_fused import Stencil, _guard, _sum2, matve
 from mpsfm_tpu_torch.kernels import I, P, Kernel, stream_ptr
 
 KERNEL = Kernel("bini_diag", "bini_diag.cu", {
-    "bini_diag_pcg": [P] * 11 + [I] * 7 + [P],
-    "bini_diag_active_clusters": [I] * 4 + [P],
+    "bini_diag_pcg": [P] * 12 + [I] * 9 + [P],
+    "bini_diag_active_clusters": [I] * 5 + [P],
 })
 
 # constants of csrc/bini_diag.cu (tests/test_torch_diag_inverse.py reads them
@@ -50,37 +52,51 @@ SMEM_BYTES = 232448
 
 class Plan(NamedTuple):
     """K3's launch shape for one grid: clusters of C CTAs, each CTA a band
-    of bh rows, R right-hand sides a cluster, smem bytes a CTA."""
+    of bh rows, R right-hand sides a cluster, smem bytes a CTA, and
+    whether p and r of a band live in global memory (gmem) rather than in
+    the CTA's shared memory."""
 
     C: int
     R: int
     bh: int
     smem: int
+    gmem: bool = False
 
 
-def smem_bytes(H: int, W: int, C: int, R: int) -> int:
+def smem_bytes(H: int, W: int, C: int, R: int, gmem: bool = False) -> int:
     """Shared memory of one CTA: p and r of its band for R right-hand
-    sides, and two parities of (warp partials, the CTA's partial, the
-    cluster's sum) of 3R sums."""
+    sides (none in global mode), and two parities of (warp partials, the
+    CTA's partial, the cluster's sum) of 3R sums."""
     bh = -(-H // C)
-    return 4 * (2 * R * bh * W + 2 * (THREADS // 32 + 2) * 3 * R)
+    return 4 * ((0 if gmem else 2 * R * bh * W) + 2 * (THREADS // 32 + 2) * 3 * R)
 
 
 def plan(H: int, W: int) -> Plan:
     """C and R for an H×W grid: R is the most right-hand sides whose bands
     fit a CTA (at most R_MAX), and C the smallest power of two ≤ C_MAX
     that reaches it. The bands of 145×193 (the main path) take C = 8,
-    R = 7; 387×387 takes C = 8, R = 1. Raises where C = 8, R = 1 does not
-    fit (a band of more than 29 002 pixels)."""
+    R = 7; 387×387 takes C = 8, R = 1. Where C = 8, R = 1 does not fit (a
+    band of more than 29 002 pixels) the bands go to global memory:
+    C = 8, R = R_MAX, gmem."""
     fits = {C: max((R for R in range(1, R_MAX + 1) if smem_bytes(H, W, C, R) <= SMEM_BYTES), default=0)
             for C in (1, 2, 4, 8)}
     R = fits[C_MAX]
     if R == 0:
-        raise ValueError(f"bini_diag kernel: a {H}x{W} grid is above what a cluster of {C_MAX} CTAs holds "
-                         f"({-(-H // C_MAX)} rows of {W} pixels a band, {smem_bytes(H, W, C_MAX, 1)} bytes "
-                         f"of shared memory at one right-hand side; {SMEM_BYTES} fit)")
+        return Plan(C_MAX, R_MAX, -(-H // C_MAX), smem_bytes(H, W, C_MAX, R_MAX, gmem=True), gmem=True)
     C = min(c for c, r in fits.items() if r == R)
     return Plan(C, R, -(-H // C), smem_bytes(H, W, C, R))
+
+
+def workspace(pl: Plan, W: int, groups: int, active: int) -> tuple[int, int]:
+    """(clusters launched, floats of the global workspace) for `groups`
+    groups of R right-hand sides, `active` clusters co-resident. Global
+    mode: min(groups, active) clusters loop over the groups, each CTA with
+    its slice of 2·R·bh·W floats (p and r of its band). Shared-memory
+    mode: one cluster a group, no workspace."""
+    if not pl.gmem:
+        return groups, 0
+    slots = min(groups, active)
+    return slots, slots * pl.C * 2 * pl.R * pl.bh * W
 
 
 def pad_queries(rows, cols, R: int):
@@ -93,13 +109,13 @@ def pad_queries(rows, cols, R: int):
     return torch.cat([rows, zeros], 1), torch.cat([cols, zeros.to(cols.dtype)], 1)
 
 
-def active_clusters(H: int, W: int, device=None) -> int:
-    """How many of plan(H, W)'s clusters the card holds at once
-    (cudaOccupancyMaxActiveClusters)."""
-    pl = plan(H, W)
+def active_clusters(H: int, W: int, device=None, pl: Plan | None = None) -> int:
+    """How many clusters of `pl` (plan(H, W) by default) the card holds at
+    once (cudaOccupancyMaxActiveClusters)."""
+    pl = plan(H, W) if pl is None else pl
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        KERNEL.call("bini_diag_active_clusters", H, W, pl.C, pl.R, ctypes.addressof(out))
+        KERNEL.call("bini_diag_active_clusters", H, W, pl.C, pl.R, int(pl.gmem), ctypes.addressof(out))
     return out.value
 
 
@@ -191,7 +207,9 @@ def deflated_pcg_plain(st: Stencil, dfl: Deflation, rows, cols, iters: int, chun
     return out
 
 
-def _pcg_cuda(st: Stencil, dfl: Deflation, rows, cols, iters: int):
+def _pcg_cuda(st: Stencil, dfl: Deflation, rows, cols, iters: int, pl: Plan | None = None):
+    """The kernel's x[q] (B,K), with plan(H, W) or, in the tests only, the
+    launch shape `pl`."""
     Bn, H, W = dfl.minv.shape
     maps = (st.ex, st.ey, st.pa, dfl.minv)
     for t in (*maps, dfl.hz, dfl.einv, dfl.lin_x, dfl.lin_y):
@@ -201,11 +219,14 @@ def _pcg_cuda(st: Stencil, dfl: Deflation, rows, cols, iters: int):
         raise ValueError("bini_diag kernel: maps (B,H,W), hz (B,3,H,W) and einv (B,3,3) expected")
     if rows.shape != cols.shape or rows.dim() != 2 or rows.shape[0] != Bn or not rows.is_cuda or not cols.is_cuda:
         raise ValueError("bini_diag kernel: rows and cols (B,K) on the card expected")
-    pl = plan(H, W)
+    pl = plan(H, W) if pl is None else pl
     Kq = rows.shape[1]
     if Bn * Kq == 0:
         return torch.empty((Bn, Kq), dtype=torch.float32, device=rows.device)
     rows, cols = pad_queries(rows, cols, pl.R)
+    groups = Bn * rows.shape[1] // pl.R
+    slots, ws_floats = workspace(pl, W, groups, active_clusters(H, W, rows.device, pl) if pl.gmem else 0)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=rows.device)
     out = torch.empty(rows.shape, dtype=torch.float32, device=rows.device)
     ex, ey, pa, minv, hz, einv, lx, ly = (t.contiguous() for t in (*maps, dfl.hz, dfl.einv, dfl.lin_x, dfl.lin_y))
     r32, c32 = (t.to(torch.int32).contiguous() for t in (rows, cols))
@@ -213,7 +234,8 @@ def _pcg_cuda(st: Stencil, dfl: Deflation, rows, cols, iters: int):
         KERNEL.call(
             "bini_diag_pcg", ex.data_ptr(), ey.data_ptr(), pa.data_ptr(), minv.data_ptr(), hz.data_ptr(),
             einv.data_ptr(), lx.data_ptr(), ly.data_ptr(), r32.data_ptr(), c32.data_ptr(), out.data_ptr(),
-            iters, Bn, H, W, rows.shape[1], pl.C, pl.R, stream_ptr(out),
+            ws.data_ptr() if ws_floats else None, iters, Bn, H, W, rows.shape[1], pl.C, pl.R, int(pl.gmem), slots,
+            stream_ptr(out),
         )
     KERNEL.launches += 1
     return out[:, :Kq]

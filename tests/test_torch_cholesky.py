@@ -176,10 +176,13 @@ def test_kernel_clamped_pivot_on_card(rng, cuda, K, z):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K, N", [(6, 1), (390, 1000), (384, 24576), (1024, 33)])
+@pytest.mark.parametrize("K, N", [(6, 1), (390, 1000), (384, 24576), (1024, 33), (3072, 1000), (384, 65),
+                                  (33, 24577)])
 def test_kernel_many_matches_plain_on_card(rng, cuda, K, N):
-    """K1 with many right-hand sides: ragged last blocks (K = 6, 390) and
-    column tiles (N = 1, 1000, 33), the covariances' shape (384 × 24 576)."""
+    """K1 with many right-hand sides: ragged last blocks (K = 6, 390, 33) and
+    column tiles (N = 1, 1000, 33, 65, 24 577; N not a multiple of 4 takes the
+    4-byte staging), the covariances' shape (384 × 24 576) and the JAX
+    package's largest dense covariance (512 cameras, K = 3072)."""
     for shift, rel in REL.items():
         S, _ = _spd(rng, K, shift)
         B = rng.normal(size=(K, N)).astype(np.float32)

@@ -231,12 +231,14 @@ def test_plan_constants_match_kernel_source():
 def test_plan_fits_every_grid_up_to_387(orientation):
     """Every grid with a long side up to 387 (the integration grid's cap,
     int_covs at full or half size) gets a plan: a cluster of at most 8 CTAs,
-    1 to 8 right-hand sides, within one CTA's shared memory."""
+    1 to 8 right-hand sides, within one CTA's shared memory (none in global
+    memory)."""
     seen = set()
     for long in range(1, 388):
         for short in range(1, long + 1):
             H, W = (short, long) if orientation == "landscape" else (long, short)
             pl = bini_diag.plan(H, W)
+            assert not pl.gmem
             assert pl.C in (1, 2, 4, 8) and pl.C <= bini_diag.C_MAX and 1 <= pl.R <= bini_diag.R_MAX
             assert pl.bh == -(-H // pl.C)
             assert pl.smem == bini_diag.smem_bytes(H, W, pl.C, pl.R) <= bini_diag.SMEM_BYTES
@@ -263,11 +265,34 @@ def test_plan_examples(H, W, C, R):
 
 
 @pytest.mark.parametrize("H, W", [(232, 1001), (233, 1000), (400, 600), (1000, 1000)])
-def test_plan_refuses_above_one_band_per_cta(H, W):
-    """The one refusal left: a band of C = 8 at R = 1 above a CTA's shared
-    memory (more than 29 002 pixels)."""
-    with pytest.raises(ValueError, match="above what a cluster of 8 CTAs holds"):
-        bini_diag.plan(H, W)
+def test_plan_keeps_bands_in_global_memory(H, W):
+    """A band of C = 8 at R = 1 above a CTA's shared memory (more than 29 002
+    pixels) is not refused: p and r go to global memory, C = 8, R = R_MAX,
+    and the CTA's shared memory holds the reduction buffers only."""
+    assert bini_diag.smem_bytes(H, W, 8, 1) > bini_diag.SMEM_BYTES
+    pl = bini_diag.plan(H, W)
+    assert pl.gmem and (pl.C, pl.R) == (8, bini_diag.R_MAX)
+    assert pl.bh == -(-H // 8)
+    assert pl.smem == bini_diag.smem_bytes(H, W, 8, bini_diag.R_MAX, gmem=True) == 4 * 2 * (16 + 2) * 3 * 8
+
+
+@pytest.mark.parametrize("H, W, K, active, slots", [
+    (400, 600, 64, 15, 15),  # 2 lanes x 64 queries: 16 groups of 8, 15 clusters co-resident
+    (400, 600, 16, 15, 4),  # fewer groups than clusters: one cluster a group
+    (232, 1001, 2048, 16, 16),
+    (145, 193, 2051, 15, 586),  # shared memory: one cluster a group, no workspace
+])
+def test_workspace_size(H, W, K, active, slots):
+    """The workspace the wrapper allocates: in global mode min(groups,
+    active) clusters of C CTAs, each CTA a slice of p and r of its band for
+    R right-hand sides, 2·R·⌈H/C⌉·W floats; none in shared-memory mode."""
+    pl = bini_diag.plan(H, W)
+    groups = 2 * K // pl.R
+    n, floats = bini_diag.workspace(pl, W, groups, active)
+    assert n == slots
+    assert floats == (slots * 8 * 2 * 8 * -(-H // 8) * W if pl.gmem else 0)
+    if (H, W) == (400, 600):  # ~15 MB a cluster
+        assert floats * 4 / slots == 8 * 2 * 8 * 50 * 600 * 4 == 15_360_000
 
 
 @pytest.mark.parametrize("K, R", [(41, 7), (40, 5), (1, 8), (3, 1)])
@@ -290,10 +315,27 @@ def cuda():
     return torch.device("cuda")
 
 
+def _card_problem(rng, dev, H, W, K):
+    """2 lanes of random diagonally dominant stencils on H×W, their
+    deflation set-up and K queries each, pixel (0, 0) among them."""
+    from mpsfm_tpu_torch.integration import bini_fused
+
+    ex, ey, pa = (torch.as_tensor(rng.random((2, H, W), dtype=np.float32), device=dev) for _ in range(3))
+    ex[..., -1] = 0.0
+    ey[..., -1, :] = 0.0
+    st = bini_fused.Stencil(ex, ey, 1e-3 * pa)
+    dfl = bini_diag.deflation(st, bini_fused.diag(st))
+    rows = torch.as_tensor(rng.integers(0, H, (2, K)), device=dev)
+    cols = torch.as_tensor(rng.integers(0, W, (2, K)), device=dev)
+    rows[:, 0] = cols[:, 0] = 0
+    return st, dfl, rows, cols
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H, W, K", [
     (GH, GW, 40), (145, 193, 40), (26, 1100, 40),
     (155, 193, 41), (193, 193, 41), (290, 387, 41), (387, 387, 41),
+    (400, 600, 64), (232, 1001, 64),
 ])
 def test_kernel_matches_plain_on_card(rng, cuda, H, W, K):
     """K3 against its plain version on the card: 2 lanes of random
@@ -302,17 +344,9 @@ def test_kernel_matches_plain_on_card(rng, cuda, H, W, K):
     is one CTA a cluster with 8 right-hand sides; the others take clusters
     of 8 CTAs whose bands split H unevenly (26×1100: the eighth band is
     empty); 155×193 and larger were refused by one block a right-hand side;
-    41 queries are no multiple of any R > 1 (padded queries)."""
-    from mpsfm_tpu_torch.integration import bini_fused
-
-    ex, ey, pa = (torch.as_tensor(rng.random((2, H, W), dtype=np.float32), device=cuda) for _ in range(3))
-    ex[..., -1] = 0.0
-    ey[..., -1, :] = 0.0
-    st = bini_fused.Stencil(ex, ey, 1e-3 * pa)
-    dfl = bini_diag.deflation(st, bini_fused.diag(st))
-    rows = torch.as_tensor(rng.integers(0, H, (2, K)), device=cuda)
-    cols = torch.as_tensor(rng.integers(0, W, (2, K)), device=cuda)
-    rows[:, 0] = cols[:, 0] = 0
+    41 queries are no multiple of any R > 1 (padded queries); 400×600 and
+    232×1001 keep their bands in global memory (C = 8, R = 8)."""
+    st, dfl, rows, cols = _card_problem(rng, cuda, H, W, K)
     n0 = bini_diag.KERNEL.launches
     v = bini_diag.deflated_pcg(st, dfl, rows, cols, 16)
     torch.cuda.synchronize()
@@ -322,3 +356,18 @@ def test_kernel_matches_plain_on_card(rng, cuda, H, W, K):
     assert bool((ref > 0).all())
     assert float(((v - ref).abs() / ref).max()) <= VAR_RTOL
     assert torch.equal(bini_diag.deflated_pcg(st, dfl, rows, cols, 16), v)
+
+
+@pytest.mark.cuda
+def test_global_mode_equals_shared_mode_on_card(rng, cuda):
+    """At the same (C, R) the global mode runs the shared-memory mode's
+    arithmetic in the same order: the variances are equal bit for bit (145×193,
+    C = 8, R = 7, 64 queries; the global mode loops over the groups on fewer
+    clusters than groups when the card holds fewer)."""
+    st, dfl, rows, cols = _card_problem(rng, cuda, 145, 193, 64)
+    pl = bini_diag.plan(145, 193)
+    assert not pl.gmem
+    shared = bini_diag._pcg_cuda(st, dfl, rows, cols, 16)
+    glob = bini_diag._pcg_cuda(st, dfl, rows, cols, 16, pl._replace(gmem=True, smem=bini_diag.smem_bytes(
+        145, 193, pl.C, pl.R, gmem=True)))
+    assert torch.equal(glob, shared)
