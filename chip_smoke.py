@@ -44,11 +44,16 @@
    parameters; anchors priced by those covariances), the fresh depth
    downscaled to 145×193 and diag(H⁻¹) there at 2048 keypoints per image
    (16 deflated PCG iterations), the keypoints' depth variances updated
-   from it, depth rows with those variances sampled from the refined
-   maps, then 20 LM iterations of the dense LM-Schur BA. It checks
-   finite, symmetric covariances with a positive diagonal whose depth
-   variance grows with depth, finite positive variances that moved on the
-   changed lanes, a lower cost, ≥ 3 accepted steps, depth rows with
+   from it, the depth-consistency check of each refined map (the query)
+   against its 5 nearest lanes (the mapper's local bundle; depth exp(z),
+   the prior variance grid ÷ 3.33², the bundle's poses), depth rows with
+   those variances sampled from the refined maps, then 20 LM iterations
+   of the dense LM-Schur BA. It checks finite, symmetric covariances with
+   a positive diagonal whose depth variance grows with depth, finite
+   positive variances that moved on the changed lanes, depth-consistency
+   counts of every pair with valid pixels and equal to the CPU's on the
+   same depth (or differing only at pixels within 1e-5 of a boundary, the
+   scores within 0.02), a lower cost, ≥ 3 accepted steps, depth rows with
    weight, depth maps closer to the ground truth than their priors, and
    that every kernel entry point was launched.
 4. Runs the same chain at a small size on the card and on the CPU (plain
@@ -56,12 +61,25 @@
    the main path and unfloored (where K3's variances reach the depth rows
    and must change sigma²); and compares the point covariances' scatter
    path (no per-(point, camera) tables) card vs CPU.
+5. The depth-consistency check on a consistent scene at 290×387: one
+   world plane rendered into 6 of the bundle's cameras scores below the
+   mapper's threshold 0.15, and above it once one reference's depth is
+   shifted by 1.5.
+6. The estimators, with the mapper's budget of 512 hypotheses: two-view
+   verification of the 66 pairs of 12 of the bundle's cameras (2048
+   matches each) and PnP at 4096 matches on points in general position and
+   on one plane (1 px noise, 30% outliers), timed after a warm-up, held
+   against the truth and against the CPU with the same samples; the
+   library solvers behind two-view verification (batched QR and eigh)
+   timed apart.
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
 
 Prints the card's name and power limit, each kernel's times and launch
-count, the wall time per phase, a `{"kernels": [...]}` line, and last
+count, the wall time per phase (the depth-consistency check's with its 8
+scores), the consistent scene's two scores, the estimators' times and
+checks, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -91,6 +109,19 @@ DOWNSCALE, COV_CG_ITERS, INT_COV_FLOOR = 2, 16, 0.01
 ROWS = dict(m_base=2.0, sff=1.5, min_trunc=-1e30, scale_filter=True, compute_trunc=True)
 LM_ITERS = 20
 IMG_W, IMG_H, FOCAL = 640.0, 480.0, 500.0
+# the depth-consistency check of the main path (mapper/depth_consistency.py defaults): c and the
+# whitened test's threshold, the score's threshold depth_cons_thresh, the local bundle of a query
+# (mapper/mapper.py:52, local_bundle_size) and prior_std_multiplier (scene/priors.py:46), by which
+# the variance grids are divided
+DC = dict(c=15.0, valid_thresh=0.6, score_thresh=0.15, refs=5, psm=3.33)
+DC_SCORE_TOL = 0.02  # |Δscore| allowed where counts differ at boundary pixels (tests/test_mapper_units.py)
+# RANSAC of the two-view verification and of registration: the mapper's hypothesis budget
+# (scene/correspondences.py:24, mapper/registration.py:347) and threshold (max_error 4 px)
+NUM_HYP, MAX_ERROR_PX = 512, 4.0
+# the estimators' scene: 66 pairs of 12 of the bundle's cameras (the pair count of
+# scripts/bench_mapping.py's 12 images), 2048 matches each; PnP at 4096 2D-3D matches; 1 px of
+# Gaussian noise on every keypoint and 30% outliers (random keypoints in the image)
+TWO_VIEW_CAMS, TWO_VIEW_MATCHES, PNP_MATCHES, NOISE_PX, OUTLIERS = 12, 2048, 4096, 1.0, 0.3
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM
 PEAK_F32 = 67e12
@@ -207,10 +238,13 @@ def synthetic_priors(bundle, B, H, W, seed=SEED, Ka=512, n_anchors=300):
     to a multiple of 128) and the prior depth at each keypoint. The scene
     depth of image b is a slanted plane at the median depth of its points;
     the prior is that plane with 3% log-normal noise; the normals are the
-    plane's."""
+    plane's. For the depth-consistency check: each lane's prior variance
+    grid divided by prior_std_multiplier², the intrinsics at grid scale,
+    each lane's neighbours and its rows against them (the JAX checker's)."""
     import torch
 
     from mpsfm_tpu_torch.integration.bini import build_prior2, build_static6, resize_log_dev
+    from mpsfm_tpu_torch.mapper.depth_consistency import pair_rows
 
     rng = np.random.default_rng(seed + 1)
     C, P = bundle.quat.shape[0], bundle.xyz.shape[0]
@@ -237,6 +271,7 @@ def synthetic_priors(bundle, B, H, W, seed=SEED, Ka=512, n_anchors=300):
     dprior = np.ones((B, Kp), np.float32)
     rowcol = np.zeros((B, 2, Kp), np.int32)
     ptidx = np.full((B, Sd), P, np.int32)  # >= P: padding
+    dc_var = np.zeros((B, H, W), np.float32)
     for b, c in enumerate(cam_rows):
         R = _rotmat(bundle.quat[c])
         pc = bundle.xyz @ R.T + bundle.t[c]
@@ -251,6 +286,7 @@ def synthetic_priors(bundle, B, H, W, seed=SEED, Ka=512, n_anchors=300):
         static6 = build_static6(np.ones((H, W), bool), np.broadcast_to(n, (H, W, 3)), normal_covs(H, W),
                                fx, fy, cx, cy)
         prior2 = build_prior2(prior, (prior * 0.05) ** 2)
+        dc_var[b] = ((prior * 0.05) ** 2).astype(np.float32) / np.float32(DC["psm"] ** 2)
         pairs.append((np.log(prior).astype(np.float32), np.concatenate([prior2, static6]).astype(np.float32)))
         z_gt.append(np.log(depth).astype(np.float32))
         # the int_covs grid: the prior resized, the static rows at the downscaled intrinsics
@@ -285,11 +321,23 @@ def synthetic_priors(bundle, B, H, W, seed=SEED, Ka=512, n_anchors=300):
         _, first = np.unique(rows[0] * W2 + rows[1], return_index=True)
         anch_ds[b, :5, :len(first)] = rows[:, np.sort(first)]
         anch[b, 5, 2:5] = anch_ds[b, 5, 2:5] = R[2]
+    # the depth-consistency check: each lane the query against its up to DC["refs"] nearest lanes
+    dc_refs = [sorted((r for r in range(B) if r != b), key=lambda r: (abs(r - b), r))[:DC["refs"]]
+               for b in range(B)]
+    poses = [(bundle.quat[c], bundle.t[c]) for c in cam_rows]
+    dc_rows = np.stack([pair_rows(poses[b], [poses[r] for r in dc_refs[b]]) for b in range(B)])
     return SimpleNamespace(
         anch=anch, prev=np.zeros((B, 2), np.float32), pairs=pairs,
         z_gt=np.stack(z_gt), gx=gx, gy=gy, sigma2=sigma2, ptidx=ptidx, cam_rows=cam_rows,
         anch_ds=anch_ds, stat8_ds=stat8_ds, rowcol=rowcol, dprior=dprior, Sd=Sd,
+        dc_var=dc_var, dc_refs=dc_refs, dc_rows=dc_rows, K_grid=grid_K(H, W),
     )
+
+
+def grid_K(H, W):
+    """Intrinsics of the 640×480 camera at the scale of an H×W grid."""
+    sx, sy = W / IMG_W, H / IMG_H
+    return np.array([[FOCAL * sx, 0, IMG_W / 2 * sx], [0, FOCAL * sy, IMG_H / 2 * sy], [0, 0, 1]], np.float32)
 
 
 def lane_state(priors, dev):
@@ -314,10 +362,11 @@ def make_inputs(n_cams, n_pts, B, H, W, seed=SEED):
 def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None, floor=INT_COV_FLOOR):
     """The refinement step on `device`, through the port's entry points,
     in the JAX package's order (Mapper: calculate_point_covs, then
-    Optimizer.ba_fused with the int_covs chain of _integrate_deferred),
-    with the depth std floored at `floor` of the prior depth (0: the
-    reference's unfloored mode). Returns a dict of tensors and numbers;
-    `phases` (a dict) collects wall seconds per phase."""
+    Optimizer.ba_fused with the int_covs chain of _integrate_deferred, the
+    depth-consistency check of each refined lane against its neighbours,
+    then the BA), with the depth std floored at `floor` of the prior depth
+    (0: the reference's unfloored mode). Returns a dict of tensors and
+    numbers; `phases` (a dict) collects wall seconds per phase."""
     import torch
 
     from mpsfm_tpu_torch import convert
@@ -331,6 +380,7 @@ def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None, floor=INT_COV_FLOO
         resize_log_dev,
         take_z,
     )
+    from mpsfm_tpu_torch.mapper.depth_consistency import bundle_score
     from mpsfm_tpu_torch.scene.image_priors import _changed_flag_dev, _updated_unc_dev
 
     phases = {} if phases is None else phases
@@ -350,6 +400,7 @@ def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None, floor=INT_COV_FLOO
     rows = [torch.as_tensor(a, device=dev)
             for a in (pr.gx, pr.gy, pr.sigma2, pr.ptidx, pr.cam_rows, pr.anch_ds, pr.rowcol, pr.dprior)]
     stat8_ds = [torch.as_tensor(a, device=dev) for a in pr.stat8_ds]
+    dc_var, dc_K, dc_rows = (torch.as_tensor(a, device=dev) for a in (pr.dc_var, pr.K_grid, pr.dc_rows))
     t0 = mark("upload", t0)
     cov = point_covariances(ba)
     t0 = mark("point_covs", t0)
@@ -365,6 +416,10 @@ def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None, floor=INT_COV_FLOO
     sigma2 = torch.stack([_updated_unc_dev(varlog, b, sigma2_old[b], dprior[b], info4, b, floor)
                           for b in range(Bn)])
     t0 = mark("int_covs", t0)
+    dc_depth = torch.stack([torch.exp(take_z(z, b)) for b in range(Bn)])
+    dc_counts = lane_dc_counts(dc_depth, dc_var, dc_K, dc_rows, pr.dc_refs)
+    dc_scores = [bundle_score(c) for c in dc_counts]
+    t0 = mark("dc", t0)
     logd = torch.stack([sample_logd(z[b], 0.0, gx[b], gy[b]) for b in range(Bn)])
     d_logt, d_w, d_scale, trunc = build_depth_grids(
         logd, sigma2[:, :pr.Sd], ptidx, cam_rows, dense.quat, dense.t, dense.xyz,
@@ -376,8 +431,88 @@ def run_slice(inputs, device, lm_iters=LM_ITERS, phases=None, floor=INT_COV_FLOO
     quat, t, xyz, info = solve_ba_dense(dense, max_iters=lm_iters)
     mark("dense_ba", t0)
     return dict(cov=cov, z=z, info4=info4, varlog=varlog, sigma2=sigma2, d_w=d_w, trunc=trunc,
-                quat=quat, t=t, xyz=xyz,
+                dc_depth=dc_depth, dc_var=dc_var, dc_K=dc_K, dc_rows=dc_rows, dc_counts=dc_counts,
+                dc_scores=dc_scores, quat=quat, t=t, xyz=xyz,
                 cost0=float(info["cost0"]), cost=float(info["cost"]), accepted=int(info["accepted"]))
+
+
+def lane_dc_counts(depth, var, K, rows, refs):
+    """The depth-consistency counts of each lane b as the query against its
+    neighbours refs[b] (one _bundle_counts call per query and grid shape,
+    as the JAX checker makes): depth and var (B, H, W), K (3, 3), rows
+    (B, R, 32). Returns (B, R, 4): qry_nv, qry_v, ref_nv, ref_v."""
+    import torch
+
+    from mpsfm_tpu_torch.mapper.depth_consistency import _bundle_counts
+
+    ones = torch.ones(2, device=depth.device)
+    return torch.stack([
+        _bundle_counts(depth[b], var[b], K, ones, depth[r], var[r], K.expand(len(r), 3, 3), rows[b],
+                       DC["c"], DC["valid_thresh"])
+        for b, r in enumerate(refs)
+    ])
+
+
+def dc_pixel_classes(depth, var, K, rows, b, j, r):
+    """Per pixel, both directions of the pair (lane b, its j-th neighbour r):
+    [(p2D, t, in-canvas, valid, occluded)] ×2."""
+    import torch
+
+    from mpsfm_tpu_torch.mapper.depth_consistency import _dir_maps, _pair_args
+
+    q, rr, M_qr, M_rq, r2_qr, r2_rq = _pair_args(depth[b], var[b], K, torch.ones(2, device=depth.device),
+                                                depth[[r]], var[[r]], K[None], rows[b, j:j + 1])
+    args = (DC["c"], DC["valid_thresh"])
+    return _dir_maps(*q, *rr, M_qr, r2_qr, *args), _dir_maps(*rr, *q, M_rq, r2_rq, *args)
+
+
+def near_boundary(p, t, out_hw, tol=1e-5):
+    """Pixels whose target lies within tol px of a pixel or canvas boundary,
+    or whose |t| lies within tol relative of the test's threshold."""
+    H2, W2 = out_hw
+    u, v = p[..., 0], p[..., 1]
+
+    def edge(x, n):
+        return ((x - x.round()).abs() <= tol) | ((x + 0.5 - n).abs() <= tol)
+
+    return edge(u, W2) | edge(v, H2) | ((t.abs() - DC["valid_thresh"]).abs() <= tol * DC["valid_thresh"])
+
+
+def dc_card_vs_cpu(out, inputs):
+    """The main path's depth-consistency counts of the card against the
+    CPU's on the same depth: equal, or every pixel classified differently
+    within 1e-5 of a boundary (near_boundary, on either device's values)
+    and every lane's score within DC_SCORE_TOL. Returns a line."""
+    import torch
+
+    from mpsfm_tpu_torch.mapper.depth_consistency import bundle_score
+
+    pr = inputs.priors
+    host = [torch.as_tensor(a) for a in (pr.dc_var, pr.K_grid, pr.dc_rows)]
+    cpu = lane_dc_counts(out["dc_depth"].cpu(), *host, pr.dc_refs)
+    card = out["dc_counts"].cpu()
+    if torch.equal(card, cpu):
+        return f"depth-consistency counts card vs CPU: equal ({card.numel()} counts)"
+    dev = [out["dc_depth"], out["dc_var"], out["dc_K"], out["dc_rows"]]
+    unexplained, n_diff = 0, 0
+    for b, j in {(int(b), int(j)) for b, j, _ in torch.nonzero(card != cpu).tolist()}:
+        r = pr.dc_refs[b][j]
+        for mc, mg in zip(dc_pixel_classes(out["dc_depth"].cpu(), *host, b, j, r),
+                          dc_pixel_classes(*dev, b, j, r)):
+            diff = torch.zeros_like(mc[2])
+            for a, g in zip(mc[2:], mg[2:]):
+                diff |= a != g.cpu()
+            hw = pr.dc_var.shape[-2:]
+            near = near_boundary(mc[0], mc[1], hw) | near_boundary(mg[0].cpu(), mg[1].cpu(), hw)
+            n_diff += int(diff.sum())
+            unexplained += int((diff & ~near).sum())
+    gap = max(abs(bundle_score(a) - bundle_score(c)) for a, c in zip(card, cpu))
+    line = (f"depth-consistency counts card vs CPU: {int((card != cpu).sum())} of {card.numel()} differ, "
+            f"{n_diff} pixels classified differently, {unexplained} of them not at a boundary; "
+            f"max |Δscore| {gap:.3g} (tolerance {DC_SCORE_TOL})")
+    if unexplained or not n_diff or gap > DC_SCORE_TOL:
+        raise AssertionError(line)
+    return line
 
 
 def check_slice(out, inputs):
@@ -420,7 +555,15 @@ def check_slice(out, inputs):
     err, err0 = np.abs(z - pr.z_gt).mean((1, 2)), np.abs(z0 - pr.z_gt).mean((1, 2))
     if not (err < 0.5 * err0).all():
         raise AssertionError(f"refined depth not closer to the truth: {err} vs prior {err0}")
-    return dict(depth_err=float(err.mean()), prior_err=float(err0.mean()), cov_depth_corr=float(corr),
+    counts = out["dc_counts"].cpu()
+    R = min(DC["refs"], B - 1)
+    if tuple(counts.shape) != (B, R, 4) or not bool(((counts >= 0) & (counts <= H * W)).all()):
+        raise AssertionError(f"depth-consistency counts of shape {tuple(counts.shape)}, not ({B}, {R}, 4) in [0, {H * W}]")
+    valid = counts[..., [1, 3]].sum(1)
+    if not bool((valid > 0).all()) or not all(np.isfinite(out["dc_scores"])):
+        raise AssertionError(f"a lane's depth-consistency check saw no valid pixel: {valid.tolist()}, {out['dc_scores']}")
+    dc_line = dc_card_vs_cpu(out, inputs) if out["dc_depth"].is_cuda else None
+    return dict(dc_line=dc_line, depth_err=float(err.mean()), prior_err=float(err0.mean()), cov_depth_corr=float(corr),
                 var_ratio=float((out["sigma2"][:, :pr.Sd].cpu()[real] / torch.as_tensor(pr.sigma2[:, :pr.Sd])[real])
                                 .median()))
 
@@ -965,6 +1108,254 @@ def k2_phase(dev, inputs):
                 ops_ms=flops / PEAK_F32 * 1e3, bytes_ms=nbytes / PEAK_BYTES * 1e3)
 
 
+PLANE = dict(normal=(0.1, -0.05, 1.0), offset=4.5)  # the world plane n·X = offset of the consistent scenes
+
+
+def plane_depth(bundle, c, rays):
+    """Depth along rays (..., 3) (camera coordinates with z = 1) of the
+    bundle's camera c to the world plane PLANE."""
+    n = np.asarray(PLANE["normal"]) / np.linalg.norm(PLANE["normal"])
+    R = _rotmat(bundle.quat[c].astype(np.float64))
+    center = -R.T @ bundle.t[c].astype(np.float64)
+    return (PLANE["offset"] - n @ center) / (rays @ (R @ n))  # X = center + d Rᵀ ray on the plane
+
+
+def plane_depths(bundle, cams, H, W):
+    """The depth maps (len(cams), H, W) of the plane PLANE rendered exactly
+    into the bundle's cameras `cams` on an H×W grid."""
+    K = grid_K(H, W).astype(np.float64)
+    xx, yy = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    rays = np.stack([(xx - K[0, 2]) / K[0, 0], (yy - K[1, 2]) / K[1, 1], np.ones_like(xx)], -1)
+    return np.stack([plane_depth(bundle, c, rays) for c in cams]).astype(np.float32)
+
+
+def dc_phase(dev, bundle, H, W, shift=1.5):
+    """The depth-consistency check on a consistent scene at the main path's
+    grid: one world plane rendered exactly into 6 of the bundle's cameras
+    (the main path's lanes 0-5), variances (5% of the depth)² ÷
+    prior_std_multiplier², the query lane 0 against lanes 1-5. The score
+    must stay below depth_cons_thresh, and exceed it once lane 1's depth is
+    shifted by `shift` (tests/test_mapper_units.py's make_dc_rec). Returns
+    (score, shifted score, wall ms of one check)."""
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.mapper.depth_consistency import _bundle_counts, bundle_score
+
+    cams = np.linspace(0, bundle.quat.shape[0] - 1, 8).round().astype(int)[:6]
+    depth = plane_depths(bundle, cams, H, W)
+    var = ((depth * 0.05) ** 2).astype(np.float32) / np.float32(DC["psm"] ** 2)
+    K = grid_K(H, W)
+    images = [(depth[i], var[i], K, bundle.quat[c], bundle.t[c]) for i, c in enumerate(cams)]
+
+    def score(imgs):
+        args = convert.dc_inputs(imgs[0], imgs[1:], device=dev)
+        return bundle_score(_bundle_counts(*args, DC["c"], DC["valid_thresh"]))
+
+    score(images)  # warm-up
+    t = time.perf_counter()
+    s0 = score(images)
+    ms = (time.perf_counter() - t) * 1e3
+    shifted = list(images)
+    shifted[1] = (depth[1] + np.float32(shift), *images[1][1:])
+    s1 = score(shifted)
+    line = (f"depth consistency on a plane seen by cameras {cams.tolist()} at {H}x{W}: score {s0:.4f}, "
+            f"with lane 1's depth +{shift}: {s1:.4f} (threshold {DC['score_thresh']}); one check of 5 refs "
+            f"{ms:.2f} ms wall")
+    print(line)
+    if not (s0 < DC["score_thresh"] < s1):
+        raise AssertionError(f"depth consistency: {line}")
+    return s0, s1, ms
+
+
+def two_view_scene(bundle, cams, rng, n=TWO_VIEW_MATCHES):
+    """Every pair of the bundle's cameras `cams`: n matches of points seen by
+    both (pixels uniform in the first image, depth uniform in [4, 8]), with
+    NOISE_PX of Gaussian noise and the first OUTLIERS·n second keypoints
+    replaced by random pixels. Returns (pairs for
+    estimate_two_view_geometry_batch, true (R, unit t) of cam2_from_cam1)."""
+    cam = SimpleNamespace(fx=FOCAL, fy=FOCAL, cx=IMG_W / 2, cy=IMG_H / 2)
+    wh = np.array([IMG_W, IMG_H])
+    pairs, truth = [], []
+    for i, c1 in enumerate(cams):
+        for c2 in cams[i + 1:]:
+            X = np.zeros((0, 3))
+            while len(X) < n:
+                px = rng.uniform(0, wh, size=(4 * n, 2))
+                Xw = _lift(bundle, c1, px, rng.uniform(4.0, 8.0, 4 * n))
+                p2, z2 = _project(bundle, c2, Xw)
+                X = np.concatenate([X, Xw[(z2 > 0.1) & (p2 >= 0).all(-1) & (p2 < wh).all(-1)]])
+            X = X[:n]
+            k1 = _project(bundle, c1, X)[0] + rng.normal(scale=NOISE_PX, size=(n, 2))
+            k2 = _project(bundle, c2, X)[0] + rng.normal(scale=NOISE_PX, size=(n, 2))
+            k2[:int(OUTLIERS * n)] = rng.uniform(0, wh, size=(int(OUTLIERS * n), 2))
+            pairs.append((cam, cam, k1, k2, np.stack([np.arange(n)] * 2, -1)))
+            R1, R2 = _rotmat(bundle.quat[c1]), _rotmat(bundle.quat[c2])
+            R = R2 @ R1.T
+            t = bundle.t[c2] - R @ bundle.t[c1]
+            truth.append((R, t / np.linalg.norm(t)))
+    return pairs, truth
+
+
+def pnp_scene(bundle, c, rng, planar, n=PNP_MATCHES):
+    """n 2D-3D matches of the bundle's camera c: points at pixels uniform in
+    the image, at depths uniform in [4, 8] or on one world plane, NOISE_PX of
+    noise on the keypoints, the first OUTLIERS·n keypoints random. Returns
+    (xyz (n, 3), normalized keypoints (n, 2)), float32."""
+    wh = np.array([IMG_W, IMG_H])
+    px = rng.uniform(0, wh, size=(n, 2))
+    if planar:
+        d = plane_depth(bundle, c, np.concatenate([(px - wh / 2) / FOCAL, np.ones((n, 1))], -1))
+    else:
+        d = rng.uniform(4.0, 8.0, n)
+    X = _lift(bundle, c, px, d)
+    kp = _project(bundle, c, X)[0] + rng.normal(scale=NOISE_PX, size=(n, 2))
+    kp[:int(OUTLIERS * n)] = rng.uniform(0, wh, size=(int(OUTLIERS * n), 2))
+    return X.astype(np.float32), ((kp - wh / 2) / FOCAL).astype(np.float32)
+
+
+def _lift(bundle, c, px, d):
+    R, t = _rotmat(bundle.quat[c]), bundle.t[c]
+    xc = np.stack([(px[:, 0] - IMG_W / 2) / FOCAL * d, (px[:, 1] - IMG_H / 2) / FOCAL * d, d], -1)
+    return (xc - t) @ R
+
+
+def _project(bundle, c, X):
+    p = X @ _rotmat(bundle.quat[c]).T + bundle.t[c]
+    return p[:, :2] / p[:, 2:] * FOCAL + np.array([IMG_W / 2, IMG_H / 2]), p[:, 2]
+
+
+def _angle_deg(R1, R2):
+    return float(np.rad2deg(np.arccos(np.clip((np.trace(R1 @ R2.T) - 1) / 2, -1.0, 1.0))))
+
+
+def _dir_deg(a, b):
+    return float(np.rad2deg(np.arccos(np.clip(a @ b / np.linalg.norm(a) / np.linalg.norm(b), -1.0, 1.0))))
+
+
+def library_solvers(dev, n):
+    """Times of the library solvers behind two-view verification at its
+    shapes: the complete QR of the n transposed minimal systems (9×8) of the
+    essential or the homography hypotheses, and the batched eigh of 3×3
+    matrices at EIGH_CHUNK; and whether the library takes 2·EIGH_CHUNK in
+    one call (cuSOLVER 12.8 refuses it, so geometry.linalg.eigh chunks)."""
+    import torch
+
+    from mpsfm_tpu_torch.geometry.linalg import EIGH_CHUNK
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    A = torch.randn(n, 9, 8, device=dev, generator=g)
+    qr_ms = cuda_ms(lambda: torch.linalg.qr(A, mode="complete"), 1)
+    M = torch.randn(2 * EIGH_CHUNK, 3, 3, device=dev, generator=g)
+    S = M @ M.transpose(-1, -2)
+    eigh_ms = cuda_ms(lambda: torch.linalg.eigh(S[:EIGH_CHUNK]), 3)
+    try:
+        torch.linalg.eigh(S)
+        torch.cuda.synchronize()
+        big = "taken"
+    except RuntimeError as e:
+        big = f"refused ({str(e)[:60]})"
+    print(f"library solvers: torch.linalg.qr(mode='complete') of {n} 9x8 matrices {qr_ms:.1f} ms; torch.linalg.eigh "
+          f"of {EIGH_CHUNK} 3x3 matrices {eigh_ms:.3f} ms; of {2 * EIGH_CHUNK} in one call: {big}")
+
+
+def estimators_phase(dev, bundle, rng):
+    """Two-view verification of the 66 pairs of TWO_VIEW_CAMS of the
+    bundle's cameras and PnP of camera 6 on points in general position and
+    on one plane, with the mapper's budget of NUM_HYP hypotheses, through
+    the port's entry points on the card (wall time after a warm-up), against
+    the truth and against the CPU with the same samples. Returns a dict of
+    the wall times."""
+    import torch
+
+    from mpsfm_tpu_torch.estimators.ransac import ransac_pnp, sample_indices
+    from mpsfm_tpu_torch.estimators.two_view import (
+        TwoViewConfig,
+        _estimate_pair,
+        estimate_two_view_geometry_batch,
+    )
+
+    n_out = int(OUTLIERS * TWO_VIEW_MATCHES)
+    pairs, truth = two_view_scene(bundle, np.arange(TWO_VIEW_CAMS), rng)
+    gen = torch.Generator().manual_seed(SEED)  # on the CPU: the same samples for the card and the CPU
+    valid = torch.ones(TWO_VIEW_MATCHES, dtype=torch.bool)
+    idx = [(sample_indices(gen, NUM_HYP, 8, valid), sample_indices(gen, NUM_HYP, 4, valid)) for _ in pairs]
+    estimate_two_view_geometry_batch(pairs, MAX_ERROR_PX, NUM_HYP, indices=idx, device=dev)  # warm-up
+    t = time.perf_counter()
+    tvg = estimate_two_view_geometry_batch(pairs, MAX_ERROR_PX, NUM_HYP, indices=idx, device=dev)
+    times = {"two_view_ms": (time.perf_counter() - t) * 1e3}
+    rot = np.array([_angle_deg(_rotmat(g.pose.quat.astype(np.float64)), R) for g, (R, _) in zip(tvg, truth)])
+    tra = np.array([_dir_deg(g.pose.t.astype(np.float64), tt) for g, (_, tt) in zip(tvg, truth)])
+    recall = np.array([(g.inlier_matches[:, 0] >= n_out).sum() / (TWO_VIEW_MATCHES - n_out) for g in tvg])
+    configs = [g.config for g in tvg]
+    strict = int(((rot <= 1.0) & (tra <= 2.0) & (recall >= 0.9)).sum())
+    line = (f"two-view verification, {len(pairs)} pairs x {TWO_VIEW_MATCHES} matches ({NOISE_PX} px noise, "
+            f"{OUTLIERS:.0%} outliers), {NUM_HYP} hypotheses: {times['two_view_ms']:.1f} ms wall; "
+            f"{configs.count(TwoViewConfig.CALIBRATED)} CALIBRATED; rotation error median {np.median(rot):.3f} max "
+            f"{rot.max():.3f} deg, translation direction median {np.median(tra):.3f} max {tra.max():.3f} deg, "
+            f"true-inlier recall median {np.median(recall):.4f} min {recall.min():.4f}; "
+            f"{strict} pairs within 1 deg, 2 deg and 90%")
+    print(line)
+    # every pair CALIBRATED; the median pair within 1 deg, 2 deg and 90% of the true inliers; no
+    # pair off by more than 5 deg of rotation or below half the true inliers (a fixed budget with
+    # one local refit, as the JAX package's, misses the per-pair bounds on some pairs: PERF.md)
+    if not (all(c == TwoViewConfig.CALIBRATED for c in configs) and np.median(rot) <= 1.0
+            and np.median(tra) <= 2.0 and np.median(recall) >= 0.9 and rot.max() <= 5.0 and recall.min() >= 0.5):
+        raise AssertionError(f"two-view verification against the truth: {line}")
+
+    library_solvers(dev, len(pairs) * NUM_HYP)
+
+    # card vs CPU on the same samples, through the batched core (which returns the winning hypothesis)
+    xy = [torch.as_tensor(np.stack([(p[k] - [IMG_W / 2, IMG_H / 2]) / FOCAL for p in pairs]), dtype=torch.float32)
+          for k in (2, 3)]
+    thr = torch.full((len(pairs),), (MAX_ERROR_PX / FOCAL) ** 2)
+    core = [torch.stack([i[k] for i in idx]) for k in (0, 1)]
+    vmask = torch.ones(len(pairs), TWO_VIEW_MATCHES, dtype=torch.bool)
+    outs = [_estimate_pair(*(a.to(d) for a in (*core, *xy, vmask, thr, thr))) for d in (dev, "cpu")]
+    g, c = ({k: (v.cpu() if torch.is_tensor(v) else type(v)(*(f.cpu() for f in v))) for k, v in o.items()} for o in outs)
+    same = g["best"] == c["best"]
+    n_gap = float(((g["num_inliers"] - c["num_inliers"]).abs() / c["num_inliers"]).max())
+    pose_gap = max([float((g["pose"][k] - c["pose"][k])[same].abs().max()) for k in (0, 1) if same.any()] + [0.0])
+    line = (f"two-view card vs CPU, same samples: configs {'equal' if torch.equal(g['config'], c['config']) else 'DIFFER'}, "
+            f"best hypothesis the same on {int(same.sum())} of {len(pairs)} pairs, inlier counts within "
+            f"{n_gap:.4%} (tolerance 1%), poses within {pose_gap:.3e} where the best is the same (tolerance 1e-3)")
+    print(line)
+    if not (torch.equal(g["config"], c["config"]) and n_gap <= 0.01 and pose_gap <= 1e-3):
+        raise AssertionError(line)
+
+    cam = 6
+    Rt, tt = _rotmat(bundle.quat[cam]), bundle.t[cam].astype(np.float64)
+    baseline = float(np.linalg.norm(Rt.T @ tt - _rotmat(bundle.quat[0]).T @ bundle.t[0]))  # centres of cameras 6 and 0
+    n_out = int(OUTLIERS * PNP_MATCHES)
+    for planar in (False, True):
+        xyz, xyn = pnp_scene(bundle, cam, rng, planar)
+        valid = torch.ones(PNP_MATCHES, dtype=torch.bool)
+        pidx = sample_indices(torch.Generator().manual_seed(SEED), NUM_HYP, 6, valid)
+        args = {d: [torch.as_tensor(a, device=d) for a in (pidx, xyz, xyn, valid)] + [(MAX_ERROR_PX / FOCAL) ** 2]
+                for d in (dev, "cpu")}
+        ransac_pnp(*args[dev])  # warm-up
+        t = time.perf_counter()
+        o = ransac_pnp(*args[dev])
+        int(o["num_inliers"])
+        what = "coplanar" if planar else "general"
+        times[f"pnp_{what}_ms"] = (time.perf_counter() - t) * 1e3
+        oc = ransac_pnp(*args["cpu"])
+        rot_err = _angle_deg(_rotmat(o["pose"].quat.cpu().double().numpy()), Rt)
+        t_err = float(np.linalg.norm(o["pose"].t.cpu().double().numpy() - tt))
+        rec = float(o["inlier_mask"].cpu()[n_out:].double().mean())
+        n_gap = abs(int(o["num_inliers"]) - int(oc["num_inliers"])) / int(oc["num_inliers"])
+        pose_gap = max(float((o["pose"].quat.cpu() - oc["pose"].quat).abs().max()),
+                       float((o["pose"].t.cpu() - oc["pose"].t).abs().max()))
+        same = int(o["best"]) == int(oc["best"])
+        line = (f"PnP ({what} points), {PNP_MATCHES} matches, {NUM_HYP} samples x 2 hypotheses: "
+                f"{times[f'pnp_{what}_ms']:.1f} ms wall; rotation error {rot_err:.4f} deg, |Δt| {t_err:.4g} "
+                f"({t_err / baseline:.3%} of the baseline {baseline:.3f}), true-inlier recall {rec:.4f}; card vs CPU: "
+                f"best {'the same' if same else 'DIFFERENT'}, inliers within {n_gap:.3%}, poses within {pose_gap:.3e}")
+        print(line)
+        if not (rot_err <= 1.0 and t_err <= 0.01 * baseline and rec >= 0.9 and n_gap <= 0.01
+                and (pose_gap <= 1e-3 or not same)):
+            raise AssertionError(line)
+    return times
+
+
 def small_reference(dev):
     """The chain at a small size on the card (kernels) and on the CPU
     (plain versions): the same inputs must give the same result, with the
@@ -1092,6 +1483,8 @@ def main():
           f"covariance depth-variance vs depth correlation {quality['cov_depth_corr']:.3f}; diag(H^-1) "
           f"{float(out['varlog'].min()):.3e} .. {float(out['varlog'].max()):.3e}, median new/old keypoint "
           f"variance {quality['var_ratio']:.4f}; launches {launches}")
+    print(f"main path depth consistency: {phases['dc'] * 1e3:.2f} ms wall for {len(out['dc_scores'])} queries x "
+          f"{out['dc_counts'].shape[1]} refs; scores {[round(x, 4) for x in out['dc_scores']]}; {quality['dc_line']}")
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the main path")
@@ -1099,6 +1492,8 @@ def main():
         raise AssertionError(f"K3 made {launches['bini_diag']} launches on the main path, not 1")
 
     small_reference(dev)
+    dc_phase(dev, inputs.bundle, *inputs.priors.z_gt.shape[1:])
+    estimators_phase(dev, inputs.bundle, np.random.default_rng(SEED + 2))
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 

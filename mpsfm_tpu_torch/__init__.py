@@ -4,10 +4,20 @@ The JAX package `mpsfm_tpu` stays the reference; this package is ported
 beside it slice by slice and never imports it (nor jax). So far: the
 mapper's refinement step with its uncertainty chain — point covariances,
 BiNI gate + IRLS/PCG solve, diag(H⁻¹) at the keypoints and the updated
-depth variances, device-side depth rows, dense LM-Schur bundle adjustment.
+depth variances, the depth-consistency check's device core, device-side
+depth rows, dense LM-Schur bundle adjustment — and the geometry and
+robust estimators that registration and geometric verification import.
 
 Layout (each module mirrors its counterpart in mpsfm_tpu/):
   geometry/rotations.py     quaternion / SE(3) math
+  geometry/linalg.py        small-matrix nullspaces, 3×3 SVD, chunked eigh
+  geometry/projection.py    Camera, projection and lifting
+  geometry/triangulation.py two- and n-view DLT, angles, depths
+  estimators/               essential, homography and PnP solvers, their
+                            fixed-budget RANSAC (samples given), two-view
+                            geometry and classification
+  mapper/depth_consistency.py  z-buffered cross-projection, whitened
+                            counts of a query against B refs, bundle score
   ba/losses.py, solver.py   robust losses, BAData + assembly, LM helpers
   ba/cholesky.py            reduced-camera Cholesky solve, one or many
                             right-hand sides (CUDA kernels K1)
@@ -20,7 +30,8 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   integration/bini_diag.py  deflated PCG of diag(H⁻¹) (CUDA kernel K3)
   scene/image_priors.py     the updated keypoint depth variances
   kernels.py                nvcc build + ctypes loader for csrc/*.cu
-  convert.py                JAX-package state (numpy) -> port tensors
+  convert.py                JAX-package state (numpy) -> port tensors:
+                            BA data, BiNI inputs, cameras, poses, DC inputs
 
 Precision policy: everything is float32 with TF32 off for matmuls and
 cuDNN, the counterpart of the JAX package's forced "highest" matmul

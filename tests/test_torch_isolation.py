@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -19,6 +20,7 @@ import torch
 import chip_smoke
 from mpsfm_tpu_torch import convert, resolve_device
 from mpsfm_tpu_torch.ba import dense
+from mpsfm_tpu_torch.estimators.two_view import estimate_two_view_geometry_batch
 from mpsfm_tpu_torch.integration.bini import Integrator
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,8 +34,12 @@ for n in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "mpsfm_tpu.")) or m == "mpsfm_tpu")
 print(len(names), bad)
-need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag", "mpsfm_tpu_torch.scene.image_priors"}
-sys.exit(1 if bad or len(names) < 14 or not need <= set(names) else 0)
+need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag", "mpsfm_tpu_torch.scene.image_priors",
+        "mpsfm_tpu_torch.mapper.depth_consistency", "mpsfm_tpu_torch.geometry.linalg",
+        "mpsfm_tpu_torch.geometry.projection", "mpsfm_tpu_torch.geometry.triangulation",
+        "mpsfm_tpu_torch.estimators.essential", "mpsfm_tpu_torch.estimators.homography",
+        "mpsfm_tpu_torch.estimators.pnp", "mpsfm_tpu_torch.estimators.ransac", "mpsfm_tpu_torch.estimators.two_view"}
+sys.exit(1 if bad or len(names) < 28 or not need <= set(names) else 0)
 """
 
 
@@ -59,6 +65,25 @@ def test_converters_refuse_the_cpu_without_a_card(monkeypatch):
         Integrator()
     assert resolve_device("cpu").type == "cpu"
     assert convert.dense_ba_data(arrays, device="cpu").quat.device.type == "cpu"
+
+
+def test_new_converters_and_estimators_refuse_the_cpu_without_a_card(monkeypatch):
+    """The converters of the cameras, poses and depth-consistency inputs, and
+    the two-view entry point, put their state on the card or raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cam = {"fx": 500.0, "fy": 500.0, "cx": 320.0, "cy": 240.0, "width": 640, "height": 480}
+    pose = (np.array([1.0, 0, 0, 0]), np.zeros(3))
+    image = (np.ones((4, 5), np.float32), np.ones((4, 5), np.float32), np.eye(3, dtype=np.float32), *pose)
+    pair = (SimpleNamespace(**cam), SimpleNamespace(**cam), np.zeros((9, 2)), np.zeros((9, 2)),
+            np.stack([np.arange(9)] * 2, -1))
+    for call in (lambda: convert.camera(cam), lambda: convert.rigid(*pose), lambda: convert.dc_inputs(image, [image]),
+                 lambda: estimate_two_view_geometry_batch([pair])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert convert.camera(cam, device="cpu").fx.device.type == "cpu"
+    assert convert.rigid(*pose, device="cpu").quat.dtype == torch.float32
+    args = convert.dc_inputs(image, [image, image], device="cpu")
+    assert [tuple(a.shape) for a in args] == [(4, 5), (4, 5), (3, 3), (2,), (2, 4, 5), (2, 4, 5), (2, 3, 3), (2, 32)]
 
 
 def test_chip_smoke_gives_no_result_without_a_card(monkeypatch, capsys):

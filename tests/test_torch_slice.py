@@ -1,6 +1,7 @@
 """The refinement step as a whole — point covariances, BiNI gate + solve,
 the int_covs chain (fresh depth downscaled, diag(H⁻¹) at the keypoints,
-updated depth variances), depth rows sampled from the refined maps with
+updated depth variances), the depth-consistency check of each refined map
+against its neighbours, depth rows sampled from the refined maps with
 those variances, dense LM-Schur BA — through the JAX package and through
 the port (chip_smoke.run_slice, on the CPU), at a small size: B = 2
 images of 48×64 (diag(H⁻¹) on 24×32, 64 keypoints each padded to 128
@@ -11,6 +12,8 @@ Tolerances: covariances max |Δ| ≤ 1e-3·max |cov| (test_torch_covariance.py),
 1e-3 relative, quat/t 1e-4 and xyz 1e-3 absolute, cost 1e-3 relative, the
 same accepted count and info4 flags (so the same changed lanes), with the
 depth std floored at 1% of the prior depth (the main path) and unfloored.
+The depth-consistency counts of the port's run equal JAX's _bundle_counts
+on the same depth maps (exp of the port's refined z), grids and rows.
 Gaps measured on the CPU: see ROADMAP.md queue 3.
 """
 
@@ -24,6 +27,7 @@ from mpsfm_tpu.ba.covariance import point_covariances as jcov
 from mpsfm_tpu.ba.dense import densify as jdensify
 from mpsfm_tpu.ba.dense import solve_ba_dense as jsolve
 from mpsfm_tpu.integration import bini as jbini
+from mpsfm_tpu.mapper import depth_consistency as jdc
 from mpsfm_tpu.scene import image_priors as jip
 
 
@@ -82,12 +86,31 @@ def _assert_matches(t, j):
     np.testing.assert_allclose(t["xyz"].numpy(), j["xyz"], atol=1e-3)
 
 
+def _jax_dc_counts(depth, pr):
+    """JAX's _bundle_counts of each lane against its neighbours, on the given
+    depth maps and the slice's grids and rows."""
+    dc = chip_smoke.DC
+    K = jnp.asarray(pr.K_grid)
+    return np.stack([
+        np.asarray(jdc._bundle_counts(
+            jnp.asarray(depth[b]), jnp.asarray(pr.dc_var[b]), K, jnp.ones(2, jnp.float32),
+            jnp.asarray(depth[refs]), jnp.asarray(pr.dc_var[refs]), jnp.broadcast_to(K, (len(refs), 3, 3)),
+            jnp.asarray(pr.dc_rows[b]), jnp.float32(dc["c"]), jnp.float32(dc["valid_thresh"])))
+        for b, refs in enumerate(pr.dc_refs)
+    ])
+
+
 def test_slice_matches_jax():
     inputs = chip_smoke.make_inputs(**chip_smoke.SMALL)
     j = _jax_chain(inputs)
     t = chip_smoke.run_slice(inputs, "cpu")
     chip_smoke.check_slice(t, inputs)
     _assert_matches(t, j)
+    counts = _jax_dc_counts(t["dc_depth"].numpy(), inputs.priors)
+    np.testing.assert_array_equal(t["dc_counts"].numpy(), counts)
+    assert (counts[..., [1, 3]] > 0).all()
+    qry_nv, qry_v, ref_nv, ref_v = counts.sum(1).T  # the JAX checker's score (depth_consistency.py:454)
+    assert t["dc_scores"] == list(np.maximum(ref_nv / np.maximum(ref_v, 0.1), qry_nv / np.maximum(qry_v, 0.1)))
 
 
 def test_slice_unfloored_matches_jax():
