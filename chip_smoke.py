@@ -72,6 +72,23 @@
    against the truth and against the CPU with the same samples; the
    library solvers behind two-view verification (batched QR and eigh)
    timed apart.
+7. The scene's host state (slice 5a): a Reconstruction of the bundle at
+   the main path's refined poses and points (64 images of one 640×480
+   camera, 8192 keypoints each, 8192 points each seen by every image:
+   524 288 observations in the native track store, built with g++), its
+   passes timed on the host clock (adding the points, the observation
+   table, triangulation angles, filter_points3D at 4 px and 1.5 deg, the
+   local bundle of one image, deregistering one image, deleting and
+   re-adding 10% of the points, normalize) with the pool's invariants
+   checked after each; the native store against the plain one
+   (PyTrackStore) under one op sequence on 12 images; geometric
+   verification of the 66 pairs of 12 images (2048 matches each, 30%
+   outliers) through Correspondences.populate on the card, timed after a
+   warm-up, held against the truth (every pair CALIBRATED, the median
+   pair within 1 deg and 90% of the true inliers) and against populate on
+   the CPU with the same samples, its correspondence graph to the inlier
+   matches; and the point covariances' store (LazyCovDict) with the main
+   path's covariances on the card.
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -79,7 +96,8 @@ torch.profiler and prints its device time by kernel.
 Prints the card's name and power limit, each kernel's times and launch
 count, the wall time per phase (the depth-consistency check's with its 8
 scores), the consistent scene's two scores, the estimators' times and
-checks, a `{"kernels": [...]}` line, and last
+checks, the scene phase's checks and one line per wall time, a
+`{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -122,6 +140,11 @@ NUM_HYP, MAX_ERROR_PX = 512, 4.0
 # scripts/bench_mapping.py's 12 images), 2048 matches each; PnP at 4096 2D-3D matches; 1 px of
 # Gaussian noise on every keypoint and 30% outliers (random keypoints in the image)
 TWO_VIEW_CAMS, TWO_VIEW_MATCHES, PNP_MATCHES, NOISE_PX, OUTLIERS = 12, 2048, 4096, 1.0, 0.3
+# the scene phase: a Reconstruction of the bench bundle after the main path's BA (64 images, 8192
+# points, each seen by every image), filtered at 4 px and COLMAP's 1.5 deg triangulation angle;
+# SCENE_REDO of the points deleted and re-added; the native store held against the plain one on
+# the first TWO_VIEW_CAMS images
+SCENE_FILTER, SCENE_REDO = (4.0, 1.5), 0.1
 
 # published peaks of one H100 SXM: float32 outside the tensor cores, HBM
 PEAK_F32 = 67e12
@@ -1356,6 +1379,313 @@ def estimators_phase(dev, bundle, rng):
     return times
 
 
+def scene_reconstruction(bundle, cams, quat, t):
+    """A port Reconstruction of the bundle's cameras `cams`: one 640×480
+    HostCamera; image c's keypoints are its observations (r_uv, keypoint k
+    of every image sees point k), registered at pose (quat[c], t[c]),
+    cam_from_world. No point yet."""
+    from mpsfm_tpu_torch.scene.reconstruction import HostCamera, ImageRecord, Pose, Reconstruction
+
+    P = bundle.xyz.shape[0]
+    rec = Reconstruction()
+    rec.add_camera(HostCamera(1, np.array([FOCAL, FOCAL, IMG_W / 2, IMG_H / 2]), int(IMG_W), int(IMG_H)))
+    for c in cams:
+        im = ImageRecord(int(c), f"im{int(c):03d}.jpg", 1)
+        im.keypoints = bundle.r_uv[c * P:(c + 1) * P].astype(np.float64)
+        im.point3D_ids = np.full(P, -1, np.int64)
+        q = np.asarray(quat[c], np.float64)
+        im.pose = Pose(q / np.linalg.norm(q), np.asarray(t[c], np.float64))
+        im.registered = True
+        rec.add_image(im)
+    return rec
+
+
+def scene_invariants(rec, what):
+    """The pool and the images agree: the observation table holds alive
+    points only, each observation is its image's point3D_ids entry, and the
+    observation count equals the track lengths' sum and the images' count
+    of assigned keypoints. Returns the observation count."""
+    o_pid, o_im, o_kp = rec.observations()
+    alive = rec.point_ids()
+    held = sum(int((im.point3D_ids >= 0).sum()) for im in rec.images.values())
+    ok = (len(o_pid) == int(rec.track_len[alive].sum()) == held and rec.num_points3D() == len(alive)
+          and bool(rec.alive[o_pid].all())
+          and all(np.array_equal(rec.images[int(i)].point3D_ids[o_kp[o_im == i]], o_pid[o_im == i])
+                  for i in np.unique(o_im)))
+    if not ok:
+        raise AssertionError(f"scene state after {what}: {len(o_pid)} observations, track lengths sum to "
+                             f"{int(rec.track_len[alive].sum())}, {held} keypoints hold a point")
+    return len(o_pid)
+
+
+def scene_state_phase(bundle, quat, t, xyz, rng):
+    """(a) The scene state at the bench bundle's size: every point with a
+    track through every image, then the passes of the mapper's host state,
+    each timed on the host clock; invariants after each. Returns the times."""
+    C, P = quat.shape[0], xyz.shape[0]
+    times = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        times[name] = time.perf_counter() - t0
+        return r
+
+    rec = timed("images", lambda: scene_reconstruction(bundle, range(C), quat, t))
+    pids = timed("add_points", lambda: [rec.add_point3D(xyz[k], [(c, k) for c in range(C)]) for k in range(P)])
+    if pids != list(range(P)) or scene_invariants(rec, "adding the points") != C * P:
+        raise AssertionError(f"adding {P} points of {C} observations each")
+    obs = timed("observations", rec.observations)
+    if len(obs[0]) != C * P:
+        raise AssertionError(f"observations: {len(obs[0])}, not {C * P}")
+    ang = timed("triangulation_angles", lambda: rec.triangulation_angles(rec.point_ids()))
+    if not (np.isfinite(ang).all() and (ang > 0).all()):
+        raise AssertionError("a triangulation angle is not finite and positive")
+    changed = timed("filter_points3D", lambda: rec.filter_points3D(*SCENE_FILTER, rec.point_ids()))
+    n_filtered = scene_invariants(rec, "filter_points3D")
+    local = timed("find_local_bundle_ids", lambda: rec.find_local_bundle_ids(0))
+    if len(local) != 5 or 0 in local:
+        raise AssertionError(f"local bundle of image 0: {local}")
+    last = rec.images[C - 1]
+    n_last = last.num_points3D()
+    dying = int((rec.track_len[last.point3D_ids[last.point3D_ids >= 0]] == 2).sum())  # their other observation goes too
+    timed("deregister_image", lambda: rec.deregister_image(C - 1))
+    n_obs = scene_invariants(rec, "deregister_image")
+    if last.registered or last.num_points3D() or n_obs != n_filtered - n_last - dying:
+        raise AssertionError(f"deregistering image {C - 1} ({n_last} observations)")
+    alive = rec.point_ids()
+    victims = rng.choice(alive, int(SCENE_REDO * len(alive)), replace=False)
+    saved = [(rec.xyz[p].copy(), rec.tracks[p]) for p in victims]
+    timed("delete_points", lambda: [rec.delete_point3D(int(p)) for p in victims])
+    if rec.num_points3D() != len(alive) - len(victims):
+        raise AssertionError("deleting points")
+    scene_invariants(rec, "delete_point3D")
+    new = timed("readd_points", lambda: [rec.add_point3D(x, tr) for x, tr in saved])
+    if new != [int(p) for p in victims[::-1]] or scene_invariants(rec, "re-adding") != n_obs:
+        raise AssertionError("the re-added points did not take the freed ids, last freed first")
+    px0 = rec.project_points_into_image(0, rec.point_ids())[0]
+    scale = timed("normalize", rec.normalize)
+    px1 = rec.project_points_into_image(0, rec.point_ids())[0]
+    gap = float(np.abs(px1 - px0).max())
+    if not (np.isfinite(scale) and scale > 0 and gap <= 1e-6):
+        raise AssertionError(f"normalize: scale {scale}, pixels moved by {gap}")
+    print(f"scene state: {C} images x {P} points, {C * P} observations in the native store; filter_points3D at "
+          f"{SCENE_FILTER[0]} px and {SCENE_FILTER[1]} deg changed {changed} observations; triangulation angle median "
+          f"{np.median(ang):.2f} deg; local bundle of image 0 {local}; {len(victims)} points deleted and re-added into "
+          f"their ids; normalize scale {scale:.4f}, pixels within {gap:.2e}")
+    for name, sec in times.items():
+        print(f"scene state {name}: {sec:.4f} s wall")
+    return times
+
+
+def store_parity_phase(bundle, quat, t, xyz, cams, seed):
+    """(b) The native track store against the plain one (PyTrackStore, put
+    in before any point) under the same op sequence on the first `cams`
+    images: add every point, filter, deregister an image, delete and re-add
+    a tenth of the points, remove and re-add observations. Their xyz,
+    alive, track_len, point3D_ids, tracks and observations must be equal.
+    Returns the two runs' times."""
+    from mpsfm_tpu_torch import native
+    from mpsfm_tpu_torch.scene.reconstruction import PyTrackStore
+
+    P = xyz.shape[0]
+    recs, times = [], []
+    for plain in (False, True):
+        rng = np.random.default_rng(seed)
+        rec = scene_reconstruction(bundle, range(cams), quat, t)
+        if plain:
+            rec._store = PyTrackStore()
+        t0 = time.perf_counter()
+        for k in range(P):
+            rec.add_point3D(xyz[k], [(c, k) for c in range(cams)])
+        rec.filter_points3D(*SCENE_FILTER, rec.point_ids())
+        rec.deregister_image(cams - 1)
+        victims = rng.choice(rec.point_ids(), int(SCENE_REDO * rec.num_points3D()), replace=False)
+        saved = [(rec.xyz[p].copy(), rec.tracks[p]) for p in victims]
+        for p in victims:
+            rec.delete_point3D(int(p))
+        for x, tr in saved:
+            rec.add_point3D(x, tr)
+        removed = []
+        for p in rng.choice(rec.point_ids(), P // 4, replace=False):
+            tr = rec.tracks[p]
+            imid, kp = tr[rng.integers(0, len(tr))]
+            removed.append((int(p), imid, kp, len(tr) > 2))
+            rec.remove_observation(int(p), imid, kp)
+        for p, imid, kp, kept in removed:
+            if kept:
+                rec.add_observation(p, imid, kp)
+        times.append(time.perf_counter() - t0)
+        recs.append(rec)
+    nat, py = recs
+    if not isinstance(nat._store, native.NativeTrackStore) or not isinstance(py._store, PyTrackStore):
+        raise AssertionError("store parity: the stores are not the native and the plain one")
+    same = (np.array_equal(nat.xyz, py.xyz) and np.array_equal(nat.alive, py.alive)
+            and np.array_equal(nat.track_len, py.track_len)
+            and all(np.array_equal(nat.images[i].point3D_ids, py.images[i].point3D_ids) for i in nat.images)
+            and np.array_equal(nat.point_ids(), py.point_ids())
+            and all(nat.tracks[p] == py.tracks[p] for p in nat.point_ids())
+            and all(np.array_equal(a, b) for a, b in zip(nat.observations(), py.observations())))
+    line = (f"track store, native vs plain (PyTrackStore), {cams} images x {P} points, the same op sequence: "
+            f"{'equal' if same else 'DIFFERENT'} state ({nat.num_points3D()} points, "
+            f"{len(nat.observations()[0])} observations)")
+    print(line)
+    print(f"track store op sequence, native: {times[0]:.4f} s wall")
+    print(f"track store op sequence, plain: {times[1]:.4f} s wall")
+    if not same:
+        raise AssertionError(line)
+    return times
+
+
+@contextlib.contextmanager
+def fixed_draws(indices):
+    """Correspondences.populate verifies with the given RANSAC samples (a
+    list, per pair, of (idx_e, idx_h)) in place of its device's generator's."""
+    import mpsfm_tpu_torch.scene.correspondences as corr
+
+    estimate = corr.estimate_two_view_geometry_batch
+    corr.estimate_two_view_geometry_batch = lambda pairs, **kw: estimate(pairs, indices=indices, **kw)
+    try:
+        yield
+    finally:
+        corr.estimate_two_view_geometry_batch = estimate
+
+
+def verification_phase(dev, bundle, rng, cams=TWO_VIEW_CAMS, n=TWO_VIEW_MATCHES):
+    """(c) Geometric verification through Correspondences.populate on `dev`
+    for the first `cams` cameras: keypoints are the bundle's observations;
+    each pair gets n matches of shared points, OUTLIERS of them with the
+    second image's keypoint id replaced by a random one. Wall time after a
+    warm-up. Held: every pair CALIBRATED, the median pair within 1 deg of
+    rotation and 90% of the true inliers, the correspondence graph equal to
+    each pair's inlier matches and inlier_match_scores to their counts; and
+    populate on `dev` against populate on the CPU with the same samples:
+    the same configs, inlier counts within 1%. The translation direction
+    and the worst pair are printed, not held: on these points the
+    reference's algorithm (one local refit of a fixed budget) misses
+    estimators_phase's per-pair bounds, as the JAX package does on the
+    same samples (PERF.md). Returns the wall seconds."""
+    import torch
+
+    from mpsfm_tpu_torch.estimators.ransac import sample_indices
+    from mpsfm_tpu_torch.estimators.two_view import TwoViewConfig
+    from mpsfm_tpu_torch.scene.correspondences import Correspondences
+
+    P = bundle.xyz.shape[0]
+    rec = scene_reconstruction(bundle, range(cams), bundle.quat, bundle.t)
+    names = {c: rec.images[c].name for c in range(cams)}
+    keypoints = {names[c]: rec.images[c].keypoints for c in range(cams)}
+    matches, truth = {}, {}
+    for i in range(cams):
+        for j in range(i + 1, cams):
+            ids = rng.choice(P, n, replace=False)
+            m = np.stack([ids, ids], -1)
+            n_out = int(OUTLIERS * n)
+            m[:n_out, 1] = rng.integers(0, P, n_out)
+            matches[(names[i], names[j])] = m
+            R1, R2 = _rotmat(bundle.quat[i]), _rotmat(bundle.quat[j])
+            R = R2 @ R1.T
+            tt = bundle.t[j] - R @ bundle.t[i]
+            truth[(i, j)] = (R, tt / np.linalg.norm(tt))
+    Correspondences({}, rec, device=dev).populate(keypoints, matches)  # warm-up
+    corr = Correspondences({}, rec, device=dev)
+    t0 = time.perf_counter()
+    corr.populate(keypoints, matches)
+    wall = time.perf_counter() - t0
+    pairs = corr.image_pairs()
+    rot, tra, recall, configs, graph_ok = [], [], [], [], True
+    for (i, j) in pairs:
+        g = corr.two_view_geom_by_ids(i, j)
+        m = matches[(names[i], names[j])]
+        R, tt = truth[(i, j)]
+        rot.append(_angle_deg(_rotmat(np.asarray(g.pose.quat, np.float64)), R))
+        tra.append(_dir_deg(np.asarray(g.pose.t, np.float64), tt))
+        inl = g.inlier_matches
+        recall.append((inl[:, 0] == inl[:, 1]).sum() / (m[:, 0] == m[:, 1]).sum())
+        configs.append(g.config)
+        graph_ok &= (np.array_equal(corr.matches(i, j), inl)
+                     and corr.inlier_match_scores[frozenset((i, j))] == float(len(inl)))
+    rot, tra, recall = map(np.array, (rot, tra, recall))
+    line = (f"geometric verification, Correspondences.populate on {dev}: {len(pairs)} pairs of {cams} images x {n} "
+            f"matches ({OUTLIERS:.0%} outliers), {configs.count(TwoViewConfig.CALIBRATED)} CALIBRATED; rotation "
+            f"error median {np.median(rot):.3f} max {rot.max():.3f} deg, translation direction median "
+            f"{np.median(tra):.3f} max {tra.max():.3f} deg, true-inlier recall median {np.median(recall):.4f} min "
+            f"{recall.min():.4f}; {int(((rot <= 1.0) & (tra <= 2.0) & (recall >= 0.9)).sum())} pairs within 1 deg, "
+            f"2 deg and 90%; correspondence graph {'holds' if graph_ok else 'DIFFERS FROM'} the inlier matches and "
+            f"scores")
+    print(line)
+    print(f"geometric verification (populate, {len(pairs)} pairs): {wall:.4f} s wall")
+    if not (len(pairs) == cams * (cams - 1) // 2 and graph_ok and corr.cg.finalized
+            and all(c == TwoViewConfig.CALIBRATED for c in configs) and np.median(rot) <= 1.0
+            and np.median(recall) >= 0.9):
+        raise AssertionError(f"geometric verification: {line}")
+
+    gen = torch.Generator().manual_seed(SEED)  # on the CPU: the same samples for both devices
+    valid = torch.ones(n, dtype=torch.bool)
+    idx = [(sample_indices(gen, NUM_HYP, 8, valid), sample_indices(gen, NUM_HYP, 4, valid)) for _ in matches]
+    runs = [Correspondences({}, rec, device=d) for d in (dev, "cpu")]
+    with fixed_draws(idx):
+        for r in runs:
+            r.populate(keypoints, matches)
+    g, c = ([r.two_view_geom_by_ids(*p) for p in pairs] for r in runs)
+    same_config = all(a.config == b.config for a, b in zip(g, c))
+    n_gap = max(abs(a.num_inliers - b.num_inliers) / b.num_inliers for a, b in zip(g, c))
+    same_inl = sum(np.array_equal(a.inlier_matches, b.inlier_matches) for a, b in zip(g, c))
+    line = (f"geometric verification, populate on {dev} vs the CPU with the same samples: configs "
+            f"{'equal' if same_config else 'DIFFER'}, inlier counts within {n_gap:.4%} (tolerance 1%), the same "
+            f"inlier matches on {same_inl} of {len(pairs)} pairs")
+    print(line)
+    if not (same_config and n_gap <= 0.01):
+        raise AssertionError(line)
+    return wall
+
+
+def cov_store_phase(cov):
+    """(d) The point covariances' store (LazyCovDict) with the card's
+    tensor: device_view() hands back that same tensor without a host read,
+    a pop reads nothing either, and every point_covs[pid] then equals the
+    tensor's row read to the host. Returns the first host access's wall
+    seconds (the one read)."""
+    from mpsfm_tpu_torch.scene.reconstruction import LazyCovDict
+
+    P = cov.shape[0]
+    point_covs = LazyCovDict()
+    point_covs.set_pending(cov, np.arange(P))
+    view = point_covs.device_view()
+    slots = point_covs.slots_for(np.arange(P))
+    point_covs.pop(7, None)  # a deleted point, as Reconstruction._clear_slot pops it
+    unread = bool(point_covs._pendings)
+    t0 = time.perf_counter()
+    n = len(point_covs)  # the first host access: one read of the tensor
+    read_s = time.perf_counter() - t0
+    ref = cov.cpu().double().numpy()
+    keep = np.arange(P) != 7
+    host = np.stack([point_covs[int(p)] for p in np.flatnonzero(keep)])
+    ok = (view[0] is cov and view[0].device == cov.device and np.array_equal(slots, np.arange(P)) and unread
+          and n == P - 1 and 7 not in point_covs and np.array_equal(host, ref[keep]))
+    line = (f"point covariances' store: {P} covariances on {cov.device} parked; device_view the same tensor, no host "
+            f"read before the first access; {'every entry equal to' if ok else 'DIFFERENT from'} the tensor's rows")
+    print(line)
+    print(f"point covariances' store, first host access (one read of {P}x3x3): {read_s:.4f} s wall")
+    if not ok:
+        raise AssertionError(line)
+    return read_s
+
+
+def scene_phase(dev, bundle, out, rng, cams=TWO_VIEW_CAMS, n_matches=TWO_VIEW_MATCHES):
+    """The scene's host state (slice 5a): (a) a Reconstruction of the bundle
+    at the main path's refined poses and points, (b) the native store
+    against the plain one, (c) geometric verification through
+    Correspondences.populate on `dev`, (d) the covariance store with the
+    main path's covariances. Returns a dict of the wall times."""
+    quat, t, xyz = (out[k].cpu().double().numpy() for k in ("quat", "t", "xyz"))
+    times = {f"scene_{k}_s": v for k, v in scene_state_phase(bundle, quat, t, xyz, rng).items()}
+    times["store_native_s"], times["store_plain_s"] = store_parity_phase(bundle, quat, t, xyz, cams, SEED + 3)
+    times["populate_s"] = verification_phase(dev, bundle, rng, cams, n_matches)
+    times["cov_read_s"] = cov_store_phase(out["cov"])
+    return times
+
+
 def small_reference(dev):
     """The chain at a small size on the card (kernels) and on the CPU
     (plain versions): the same inputs must give the same result, with the
@@ -1494,6 +1824,7 @@ def main():
     small_reference(dev)
     dc_phase(dev, inputs.bundle, *inputs.priors.z_gt.shape[1:])
     estimators_phase(dev, inputs.bundle, np.random.default_rng(SEED + 2))
+    scene_phase(dev, inputs.bundle, out, np.random.default_rng(SEED + 4))
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 

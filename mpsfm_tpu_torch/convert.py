@@ -1,14 +1,19 @@
 """State of the JAX package, given as numpy arrays, turned into the port's.
 
 The port runs no learned weights; what carries over is the state the JAX
-package hands between its device programs, its cameras and poses, and the
-depth-consistency check's grids and per-pair rows. Each converter
-takes host arrays, e.g. `{k: np.asarray(v) for k, v in nt._asdict().items()}`
-of a JAX NamedTuple, and returns tensors on `device` (the card unless the
-caller asks for the CPU; no GPU raises, see `resolve_device`).
+package hands between its device programs, its cameras and poses, the
+depth-consistency check's grids and per-pair rows, and the scene's host
+state. Each device converter takes host arrays, e.g.
+`{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
+and returns tensors on `device` (the card unless the caller asks for the
+CPU; no GPU raises, see `resolve_device`); `reconstruction` builds the
+port's host-side Reconstruction.
 """
 
 from __future__ import annotations
+
+import copy
+from dataclasses import fields
 
 import numpy as np
 import torch
@@ -20,6 +25,7 @@ from mpsfm_tpu_torch.geometry.projection import Camera
 from mpsfm_tpu_torch.geometry.rotations import Rigid3d
 from mpsfm_tpu_torch.integration.bini import BiniInputs, BiniParams
 from mpsfm_tpu_torch.mapper.depth_consistency import pair_rows
+from mpsfm_tpu_torch.scene.reconstruction import HostCamera, ImageRecord, Pose, Reconstruction
 
 
 def _f32(a, dev):
@@ -104,3 +110,47 @@ def dc_inputs(query, refs, device="cuda"):
     rows = pair_rows(query[3:], [r[3:] for r in refs])
     return (*(_f32(a, dev) for a in query[:3]), _f32(np.ones(2), dev),
             *(_f32(np.stack([r[i] for r in refs]), dev) for i in range(3)), _f32(rows, dev))
+
+
+def reconstruction(rec) -> Reconstruction:
+    """The host state of a JAX package Reconstruction, read duck-typed
+    (plain attributes, numpy arrays and `rec.tracks[pid]`), as the port's
+    Reconstruction: every camera field; every image field (keypoints,
+    pose, registered, point3D_ids, ...; attributes set outside the
+    dataclass, such as priors, are not carried); and the point pool, where
+    every slot below the pool's high-water mark keeps its point id, xyz and
+    track in the same observation order, so alive, track_len, point3D_ids
+    and observations() equal the source's. A dead slot is allocated with a
+    one-observation placeholder on a keypoint that no point observes, and
+    the placeholders are deleted at the end, highest id first: the next
+    added points take the lowest free ids first, which need not be the
+    source's free-list order."""
+    out = Reconstruction()
+    for cam in rec.cameras.values():
+        out.add_camera(HostCamera(**{f.name: copy.deepcopy(getattr(cam, f.name)) for f in fields(HostCamera)}))
+    for im in rec.images.values():
+        kw = {f.name: copy.deepcopy(getattr(im, f.name)) for f in fields(ImageRecord)}
+        if im.pose is not None:
+            kw["pose"] = Pose(np.array(im.pose.q, np.float64), np.array(im.pose.t, np.float64))
+        kw["point3D_ids"] = np.full(len(im.point3D_ids), -1, np.int64)  # filled by the point adds below
+        out.add_image(ImageRecord(**kw))
+
+    unobserved = ((imid, int(kp)) for imid, im in rec.images.items()
+                  for kp in np.flatnonzero(np.asarray(im.point3D_ids) < 0))
+    holes = []
+    for pid in range(int(rec._num_points)):
+        if rec.alive[pid]:
+            track = rec.tracks[pid]
+        else:
+            track = [next(unobserved, None)]
+            if track[0] is None:
+                raise ValueError("reconstruction: too few unobserved keypoints to hold the pool's dead slots")
+            holes.append(pid)
+        got = out.add_point3D(np.asarray(rec.xyz[pid], np.float64), track)
+        if got != pid:
+            raise ValueError(f"reconstruction: slot {pid} of the source came out as {got}; its tracks disagree "
+                             "with its images' point3D_ids")
+    for pid in reversed(holes):
+        out.delete_point3D(pid)
+    out.xyz[: len(out.alive)] = np.asarray(rec.xyz, np.float64)[: len(out.alive)]  # dead slots keep their xyz
+    return out

@@ -1,2 +1,9 @@
-"""Scene state (port of mpsfm_tpu/scene); so far only the device functions
-of the uncertainty chain."""
+"""Scene state (port of mpsfm_tpu/scene): the reconstruction with its
+native track store, the correspondence graph, geometric verification, and
+the device functions of the uncertainty chain (scene/image_priors.py)."""
+
+from mpsfm_tpu_torch.scene.correspondences import Correspondences
+from mpsfm_tpu_torch.scene.corrgraph import CorrespondenceGraph
+from mpsfm_tpu_torch.scene.reconstruction import HostCamera, ImageRecord, Reconstruction
+
+__all__ = ["HostCamera", "ImageRecord", "Reconstruction", "CorrespondenceGraph", "Correspondences"]

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports neither jax nor the JAX package, its
-state-creating entry points refuse to fall back to the CPU, and
-chip_smoke.py gives no result without a card or without the package.
+"""The port stands alone: it imports neither jax nor the JAX package (nor,
+at import time, PyYAML or h5py), its state-creating entry points refuse
+to fall back to the CPU, and chip_smoke.py gives no result without a card
+or without the package.
 
 The import check runs in a subprocess because tests/conftest.py imports
 jax and mpsfm_tpu into this one.
@@ -33,13 +34,19 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "mpsfm_tpu.")) or m == "mpsfm_tpu")
+# the scene, config and utils modules (and everything else) import neither
+# parser at import time: the card's host need not have them
+bad += sorted(m for m in ("yaml", "h5py") if m in sys.modules)
 print(len(names), bad)
 need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag", "mpsfm_tpu_torch.scene.image_priors",
         "mpsfm_tpu_torch.mapper.depth_consistency", "mpsfm_tpu_torch.geometry.linalg",
         "mpsfm_tpu_torch.geometry.projection", "mpsfm_tpu_torch.geometry.triangulation",
         "mpsfm_tpu_torch.estimators.essential", "mpsfm_tpu_torch.estimators.homography",
-        "mpsfm_tpu_torch.estimators.pnp", "mpsfm_tpu_torch.estimators.ransac", "mpsfm_tpu_torch.estimators.two_view"}
-sys.exit(1 if bad or len(names) < 28 or not need <= set(names) else 0)
+        "mpsfm_tpu_torch.estimators.pnp", "mpsfm_tpu_torch.estimators.ransac", "mpsfm_tpu_torch.estimators.two_view",
+        "mpsfm_tpu_torch.config", "mpsfm_tpu_torch.utils.interp", "mpsfm_tpu_torch.utils.io",
+        "mpsfm_tpu_torch.utils.profiling", "mpsfm_tpu_torch.native", "mpsfm_tpu_torch.scene.corrgraph",
+        "mpsfm_tpu_torch.scene.reconstruction", "mpsfm_tpu_torch.scene.correspondences"}
+sys.exit(1 if bad or len(names) < 37 or not need <= set(names) else 0)
 """
 
 
