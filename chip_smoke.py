@@ -89,6 +89,31 @@
    the CPU with the same samples, its correspondence graph to the inlier
    matches; and the point covariances' store (LazyCovDict) with the main
    path's covariances on the card.
+8. The refinement step driven from the scene (slices 5b and the front of
+   6a): a Reconstruction of the bundle (64 images, 8192 points each seen
+   by every image) with ImagePriors on 8 images at 290×387 (a depth prior
+   fitted to each image's points with a scale error and noise, the plane's
+   normals; the main path's conf), run through the port's entry points in
+   the order of the JAX package's Mapper.adjust_bundle with int_covs:
+   Optimizer.calculate_point_covs (K1 many), a global step
+   (integrate_bundle_deferred over the 8 lanes (K2), finalize_integration,
+   int_covs_bundle_batched on the changed lanes (K3, 8192 keypoints each),
+   Optimizer.ba_fused with update_trunc (K1)), a local step of one image
+   (integrate_bundle_deferred, int_covs_bundle_deferred, ba_fused with the
+   chained variances), then optimize_prior_shiftscale, Depth.rescale and
+   refine_3d_points; once to warm up, then on a fresh scene with the launch
+   counts set to 0, each entry point's wall time printed (build_ba_data's
+   host passes apart) and K3 timed at int_covs_bundle_batched's shapes.
+   Held: finite, symmetric covariances with a positive diagonal, parked
+   with a slot for every point (the anchors' codes then ≥ 0); each BA's
+   cost below its start with an accepted step; poses and points written
+   back; changed lanes device-resident until read and closer to the
+   points' true depths than their priors; uncertainty_update finite,
+   positive and moved on the changed lanes; a finite truncation
+   multiplier; each of K1, K1 many, K2 and K3 launched. The same phase at
+   the small size on the card and on the CPU agrees (z, covariances,
+   uncertainty_update, costs; poses, points and the truncation multiplier
+   with LM iterations that end before the rel_tol latch).
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -96,8 +121,9 @@ torch.profiler and prints its device time by kernel.
 Prints the card's name and power limit, each kernel's times and launch
 count, the wall time per phase (the depth-consistency check's with its 8
 scores), the consistent scene's two scores, the estimators' times and
-checks, the scene phase's checks and one line per wall time, a
-`{"kernels": [...]}` line, and last
+checks, the scene phase's checks and one line per wall time, the scene
+refinement's checks and wall times and its launches (a line of their
+own), a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -126,6 +152,10 @@ DOWNSCALE, COV_CG_ITERS, INT_COV_FLOOR = 2, 16, 0.01
 # depth rows of the BA (mpsfm_tpu/mapper/optimizer.py defaults: rob_std 2, scale_filter_factor 1.5)
 ROWS = dict(m_base=2.0, sff=1.5, min_trunc=-1e30, scale_filter=True, compute_trunc=True)
 LM_ITERS = 20
+# LM iterations of the small scene refinement card vs CPU that end before the rel_tol latch (a step that
+# moves the cost by < 1e-6 relative) can fire in any of its BAs: up to there every step moves the cost by
+# more than float32 order can
+LATCH_FREE_ITERS = 8
 IMG_W, IMG_H, FOCAL = 640.0, 480.0, 500.0
 # the depth-consistency check of the main path (mapper/depth_consistency.py defaults): c and the
 # whitened test's threshold, the score's threshold depth_cons_thresh, the local bundle of a query
@@ -1686,6 +1716,319 @@ def scene_phase(dev, bundle, out, rng, cams=TWO_VIEW_CAMS, n_matches=TWO_VIEW_MA
     return times
 
 
+# ---- the scene refinement phase (slices 5b and the front of 6a) ----
+
+def bench_points(n_pts, seed=SEED):
+    """The bench bundle's true points (synthetic_bundle's first draws,
+    before their noise)."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts), rng.uniform(4, 9, n_pts)], -1)
+
+
+def refine_scene(bundle, B, H, W, device, seed=SEED):
+    """A port Reconstruction of the bundle on `device`: every image
+    registered at the bundle's pose, keypoint k of every image observing
+    point k (at the bundle's noisy xyz), the camera's integration grid
+    H×W; and ImagePriors (the main path's conf) on B images spread over
+    the bundle, activated. Image b's depth prior is the plane fitted (in
+    inverse depth) to its true points' depths, times a scale error in
+    [0.9, 1.1] and 3% log-normal noise, with a 5% std; its normals are the
+    plane's, with a 2° std. Returns (rec, pris, truth): truth[imid] the
+    true points' depths in the image (keypoint order)."""
+    from mpsfm_tpu_torch.scene.image_priors import ImagePriors
+
+    rng = np.random.default_rng(seed + 5)
+    C, P = bundle.quat.shape[0], bundle.xyz.shape[0]
+    rec = scene_reconstruction(bundle, range(C), bundle.quat, bundle.t)
+    cam = rec.cameras[1]
+    cam.int_width, cam.int_height = W, H
+    lanes = np.linspace(0, C - 1, B).round().astype(int)
+    for k in range(P):
+        rec.add_point3D(bundle.xyz[k].astype(np.float64), [(c, k) for c in range(C)])
+    fx, fy, cx, cy = FOCAL * cam.sx, FOCAL * cam.sy, IMG_W / 2 * cam.sx, IMG_H / 2 * cam.sy
+    xs, ys = np.meshgrid((np.arange(W) + 0.5 - cx) / fx, (np.arange(H) + 0.5 - cy) / fy)
+    pts = bench_points(P, seed)
+    pris, truth = [], {}
+    for c in lanes:
+        pose = rec.images[c].pose
+        z = pose.transform(pts)[:, 2]
+        truth[int(c)] = z
+        uv = (rec.images[c].keypoints - [IMG_W / 2, IMG_H / 2]) / FOCAL
+        abc = np.linalg.lstsq(np.c_[uv, np.ones(P)], 1.0 / z, rcond=None)[0]  # 1/z = a·x + b·y + c
+        plane = 1.0 / np.clip(abc[0] * xs + abc[1] * ys + abc[2], 1e-3, None)
+        prior = plane * rng.uniform(0.9, 1.1) * np.exp(rng.normal(scale=0.03, size=plane.shape))
+        n = -abc / np.linalg.norm(abc)
+        pri = ImagePriors(
+            {}, rec, int(c),
+            depth_dict={"depth": prior, "depth_variance": (0.05 * prior) ** 2},
+            normals_dict={"normals": np.broadcast_to(n, (H, W, 3)).copy(),
+                          "normals_variance": np.full((H, W), (np.pi / 180 * 2) ** 2)},
+            device=device,
+        )
+        im = rec.images[int(c)]
+        im.priors, im.depth, im.normals = pri, pri.depth, pri.normals
+        pri.depth.activate()
+        pris.append(pri)
+    return rec, pris, truth
+
+
+def global_bundle(rec):
+    """The mapper's global bundle (mapper/mapper.py:find_global_bundle)."""
+    return {"optim_ids": set(rec.reg_image_ids()), "pts3D": set(rec.point_ids().tolist()), "constpoints": set()}
+
+
+def local_bundle(rec, ref, n=5):
+    """The mapper's local bundle of image ref (find_local_bundle)."""
+    optim_ids = set(rec.find_local_bundle_ids(ref, n)) | {ref}
+    pts = set()
+    for imid in optim_ids:
+        ids = rec.images[imid].point3D_ids
+        pts.update(ids[ids >= 0].tolist())
+    ids = rec.images[ref].point3D_ids
+    own = set(ids[ids >= 0].tolist())
+    return {"ref_id": ref, "optim_ids": optim_ids, "pts3D": own, "constpoints": pts - own}
+
+
+def run_scene_refinement(rec, pris, device, times=None, opt_conf=None):
+    """The refinement steps of the JAX package's Mapper.adjust_bundle with
+    int_covs on, through the port's entry points on `device`: point
+    covariances; a global step (integrate_bundle_deferred over every
+    prior lane; more than 2 lanes, so finalize_integration, then
+    int_covs_bundle_batched on the changed lanes; Optimizer.ba_fused with
+    update_trunc); a local step of one image (integrate_bundle_deferred,
+    int_covs_bundle_deferred, ba_fused with the chained variances); then
+    optimize_prior_shiftscale, Depth.rescale and refine_3d_points. `times`
+    (a dict) collects each entry point's wall seconds, the host
+    build_ba_data passes apart; opt_conf is the Optimizer's conf (the main
+    path's by default). Returns what the checks read."""
+    import torch
+
+    from mpsfm_tpu_torch.mapper.optimizer import Optimizer
+    from mpsfm_tpu_torch.scene import image_priors as ip
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    times = {} if times is None else times
+    dev = torch.device(device)
+    opt = Optimizer(opt_conf or {}, rec, device=dev)
+    TIMERS.reset()
+
+    def timed(name, fn, *a, **kw):
+        t0 = time.perf_counter()
+        r = fn(*a, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        times[name] = time.perf_counter() - t0
+        return r
+
+    out = {"unc0": {p.imid: np.array(p.depth.uncertainty_update) for p in pris}}
+    bundle = global_bundle(rec)
+    timed("calculate_point_covs", opt.calculate_point_covs, bundle)
+    out["cov"] = rec.point_covs.device_view()[0]
+    out["slots"] = rec.point_covs.slots_for(rec.point_ids())
+    handles, pending = timed("integrate_bundle_deferred", ip.integrate_bundle_deferred, pris)
+    changed = timed("finalize_integration", ip.finalize_integration, pending)
+    out["changed"] = changed
+    out["z"] = {p.imid: handles[p.imid][0][handles[p.imid][1]] for p in pris}
+    need = [p for p in pris if changed[p.imid]]
+    timed("int_covs_bundle_batched", ip.int_covs_bundle_batched, need)
+    out["unc1"] = {p.imid: np.array(p.depth.uncertainty_update) for p in pris}
+
+    def z_getter(h):
+        return lambda imid: (h[imid][0][h[imid][1]], 0.0) if imid in h else rec.images[imid].priors._z0_shift_dev()
+
+    out["ba_global"] = timed("ba_fused_global", opt.ba_fused, bundle, "global", z_getter(handles),
+                             allow_scale_filter=True, update_trunc=True)
+    out["device_resident"] = {p.imid: p.depth._data is None and p.depth._data_dev is not None for p in need}
+    out["trunc"] = opt.truncation_multiplier
+
+    ref = pris[len(pris) // 2]
+    lb = local_bundle(rec, ref.imid)
+    handles, pending = timed("integrate_bundle_deferred_local", ip.integrate_bundle_deferred, [ref])
+    info_map = {p.imid: (info, k) for g, _z, info in pending for k, p in enumerate(g)}
+    unc_over, pending_covs = timed("int_covs_bundle_deferred", ip.int_covs_bundle_deferred, [ref], handles,
+                                   info_map)
+    out["ba_local"] = timed("ba_fused_local", opt.ba_fused, lb, "local", z_getter(handles), pending=pending,
+                            allow_scale_filter=True, unc_overrides=unc_over, pending_covs=pending_covs)
+
+    shift_scale, ok = timed("optimize_prior_shiftscale", opt.optimize_prior_shiftscale, bundle)
+    t0 = time.perf_counter()
+    for imid, (shift, scale) in shift_scale.items():
+        rec.images[imid].depth.rescale(shift, scale)
+    times["rescale"] = time.perf_counter() - t0
+    out["shift_scale"] = shift_scale
+    out["refine"] = timed("refine_3d_points", opt.refine_3d_points, bundle)
+    times["build_ba_data (ba_fused, refine_3d_points)"] = TIMERS.totals["ba.build_data"]
+    times["build_ba_data (calculate_point_covs)"] = TIMERS.totals["point_covs.build"]
+    out["quat"] = np.stack([rec.images[i].pose.q for i in sorted(rec.images)])
+    out["t"] = np.stack([rec.images[i].pose.t for i in sorted(rec.images)])
+    out["xyz"] = rec.xyz[rec.point_ids()].copy()
+    out["unc"] = {p.imid: np.array(p.depth.uncertainty_update) for p in pris}
+    return out
+
+
+def check_scene_refinement(out, rec, pris, truth, bundle):
+    """The scene refinement phase's checks; raises on the first that
+    fails. Returns numbers to print."""
+    cov = out["cov"].double().cpu().numpy()
+    asym = np.abs(cov - cov.transpose(0, 2, 1)).max() / np.abs(cov).max()
+    if not (np.isfinite(cov).all() and asym < 1e-5 and (np.einsum("pii->pi", cov) > 0).all()):
+        raise AssertionError(f"scene covariances not finite, symmetric ({asym}) or with a positive diagonal")
+    if not (out["slots"] >= 0).all():  # else the anchors take the default covariance (slot -1) silently
+        raise AssertionError(f"{int((out['slots'] < 0).sum())} points have no slot in the parked covariances")
+    for k in ("ba_global", "ba_local", "refine"):
+        info, ok = out[k]
+        if not (ok and info["cost"] < info["cost0"] and info["accepted"] >= 1):
+            raise AssertionError(f"{k}: {info}, success {ok}")
+    C = bundle.quat.shape[0]
+    moved_q = np.abs(out["quat"] - bundle.quat.astype(np.float64)).max(1)
+    moved_x = np.abs(out["xyz"] - bundle.xyz.astype(np.float64)).max()
+    if not (moved_q[0] <= 1e-6 and (moved_q[1:] > 1e-6).all() and moved_x > 1e-6 and np.isfinite(out["xyz"]).all()):
+        raise AssertionError(f"poses or points not written back: quat moved {moved_q}, xyz moved {moved_x}")
+    changed = [p for p in pris if out["changed"][p.imid]]
+    if not changed or not all(out["device_resident"].values()):
+        raise AssertionError(f"changed lanes {out['changed']}, device-resident after the BA {out['device_resident']}")
+    gaps = {}
+    for p in changed:
+        kps = rec.images[p.imid].keypoints
+        inside = (kps[:, 0] >= 0) & (kps[:, 0] < IMG_W) & (kps[:, 1] >= 0) & (kps[:, 1] < IMG_H)
+        t = truth[p.imid][inside]
+        refined = np.abs(np.log(p.depth.data_at_kps(kps[inside]) / t)).mean()
+        prior = np.abs(np.log(out["prior_kps"][p.imid][inside] / t)).mean()
+        gaps[p.imid] = (float(refined), float(prior))
+    if not all(r < q for r, q in gaps.values()):
+        raise AssertionError(f"refined maps not closer to the points' true depths than their priors: {gaps}")
+    moved = {}
+    for p in changed:
+        u0, u1 = out["unc0"][p.imid], out["unc1"][p.imid]
+        moved[p.imid] = float((u1 != u0).mean())
+        if not (np.isfinite(u1).all() and (u1 > 0).all() and moved[p.imid] > 0.9):
+            raise AssertionError(f"uncertainty_update of image {p.imid}: finite {np.isfinite(u1).all()}, "
+                                 f"positive {(u1 > 0).all()}, moved at {moved[p.imid]:.3f} of the keypoints")
+    if not np.isfinite(out["trunc"]):
+        raise AssertionError(f"truncation multiplier {out['trunc']}")
+    return dict(gaps=gaps, moved=moved, cams=C)
+
+
+def scene_k3_args(rec, pris, dev):
+    """K3's inputs as int_covs_bundle_batched gives them for the lanes
+    `pris`: the downscaled problems with their anchors priced by the
+    parked covariances, the operator at the working z, the deflation
+    set-up, every keypoint's query and the iteration count."""
+    from mpsfm_tpu_torch.integration import bini, bini_diag, bini_fused
+    from mpsfm_tpu_torch.scene import image_priors as ip
+
+    with rec.tri_angle_cache():
+        entries = [(p, p._int_cov_query()) for p in pris]
+    params = entries[0][1][6]
+    anch = ip._group_anchors(entries, tuple(entries[0][1][0][4][1].shape[-2:]), dev)
+    inp = bini._unpack(bini._assemble_batch_anchors(anch, ip._cov_dev_or_dummy(rec, dev), [q[0][4] for _, q in entries]))
+    st, _, dg = bini._operator(inp, params, *bini_fused.weights(inp.z0, params.k))
+    rowcol = ip._query_rows(entries, dev)
+    return st, bini_diag.deflation(st, dg), rowcol[:, 0], rowcol[:, 1], params.cg_max_iter
+
+
+def scene_refinement_phase(dev, bundle, counted, size=FULL):
+    """The refinement steps driven from the scene (slices 5b and the front
+    of 6a) at `size`: a Reconstruction of the bundle with ImagePriors on
+    size["B"] images at size["H"]×size["W"], run once to warm up, then
+    once on a fresh scene with the launch counts set to 0 just before;
+    checks, one line per entry point's wall time, the launches, and K3
+    held to its plain version (k3_check) and timed at
+    int_covs_bundle_batched's shapes. Returns (times, launches)."""
+    import torch
+
+    dev = torch.device(dev)
+    t = time.perf_counter()
+    rec, pris, truth = refine_scene(bundle, size["B"], size["H"], size["W"], dev)
+    build_s = time.perf_counter() - t
+    run_scene_refinement(rec, pris, dev)  # warm-up
+    rec, pris, truth = refine_scene(bundle, size["B"], size["H"], size["W"], dev)
+    prior_kps = {p.imid: p.depth.data_prior_at_kps(rec.images[p.imid].keypoints) for p in pris}
+    for k in counted.values():
+        k.launches = 0
+    times = {}
+    t = time.perf_counter()
+    out = run_scene_refinement(rec, pris, dev, times)
+    wall = time.perf_counter() - t
+    launches = {name: k.launches for name, k in counted.items()}
+    out["prior_kps"] = prior_kps
+    q = check_scene_refinement(out, rec, pris, truth, bundle)
+    C, P = bundle.quat.shape[0], bundle.xyz.shape[0]
+    print(f"scene refinement: {C} images x {P} points, ImagePriors on {len(pris)} images at {size['H']}x{size['W']} "
+          f"(scene and priors built in {build_s:.3f} s); {wall:.3f} s wall")
+    for k in ("ba_global", "ba_local", "refine"):
+        info = out[k][0]
+        print(f"scene refinement {k}: cost {info['cost0']:.6g} -> {info['cost']:.6g}, {info['accepted']} accepted")
+    print(f"scene refinement: changed lanes {sorted(i for i, c in out['changed'].items() if c)}, device-resident "
+          f"until read; mean |log(d / z_true)| at the keypoints, refined vs prior "
+          f"{ {i: (round(a, 5), round(b, 5)) for i, (a, b) in q['gaps'].items()} }; uncertainty_update moved at "
+          f"{ {i: round(v, 4) for i, v in q['moved'].items()} } of the keypoints; truncation multiplier "
+          f"{out['trunc']:.6g}; shift/scale {len(out['shift_scale'])} images")
+    for name, sec in times.items():
+        print(f"scene refinement {name}: {sec:.4f} s wall")
+    if dev.type == "cuda":
+        from mpsfm_tpu_torch.integration import bini_diag
+
+        args = scene_k3_args(rec, pris, dev)
+        k3_check("scene refinement", args)
+        n_rhs = args[2].numel()
+        print(f"scene refinement K3 at int_covs_bundle_batched's shapes ({args[2].shape[0]} lanes x {args[2].shape[1]} "
+              f"keypoints of {'x'.join(map(str, args[1].minv.shape[1:]))}, {n_rhs} right-hand sides, {args[4]} "
+              f"iterations): {cuda_ms(lambda: bini_diag.deflated_pcg(*args), 2):.3f} ms")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched in the scene refinement phase")
+    return times, launches
+
+
+def scene_refinement_card_vs_cpu(dev, size=SMALL):
+    """The scene refinement phase at a small size on the card and on the
+    CPU from the same seed, twice. With the main path's 20 LM iterations:
+    the same changed maps, and z of the global step, covariances,
+    uncertainty_update and each BA's cost within the small chain's
+    tolerances; the accepted counts are printed, not held, since the LM's
+    rel_tol latch fires at an iteration that float32 order decides
+    (ROADMAP queue 3; tests/test_torch_dense_ba.py). With LATCH_FREE_ITERS
+    iterations, before any latch: the same accepted counts, and poses,
+    points, costs and the truncation multiplier within the tolerances.
+    Returns the gaps."""
+    b = synthetic_bundle(size["n_cams"], size["n_pts"])
+    gaps = {}
+    tol = dict(z_max=1e-3, z_mean=1e-4, cov_rel=COV_REL, unc_rel=VAR_REL, cost_rel=1e-3, quat=1e-4, t=1e-4,
+               xyz=1e-3, trunc_rel=1e-4)
+    bas = ("ba_global", "ba_local", "refine")
+    for iters in (LM_ITERS, LATCH_FREE_ITERS):
+        runs = []
+        for d in (dev, "cpu"):
+            rec, pris, _ = refine_scene(b, size["B"], size["H"], size["W"], d)
+            runs.append(run_scene_refinement(rec, pris, d, opt_conf={"max_iters": iters}))
+        g, c = runs
+        accepted = {k: (g[k][0]["accepted"], c[k][0]["accepted"]) for k in bas}
+        gap = dict(cost_rel=max(abs(g[k][0]["cost"] - c[k][0]["cost"]) / c[k][0]["cost"] for k in bas))
+        if iters == LM_ITERS:
+            dz = np.concatenate([(g["z"][i].cpu() - c["z"][i]).abs().numpy().ravel() for i in c["z"]])
+            gap.update(
+                z_max=float(dz.max()), z_mean=float(dz.mean()),
+                cov_rel=float((g["cov"].cpu() - c["cov"]).abs().max() / c["cov"].abs().max()),
+                unc_rel=max(float((np.abs(g["unc"][i] - c["unc"][i]) / c["unc"][i]).max()) for i in c["unc"]),
+            )
+        else:
+            gap.update(
+                quat=float(np.abs(g["quat"] - c["quat"]).max()), t=float(np.abs(g["t"] - c["t"]).max()),
+                xyz=float(np.abs(g["xyz"] - c["xyz"]).max()), trunc_rel=abs(g["trunc"] - c["trunc"]) / abs(c["trunc"]),
+            )
+        line = (f"scene refinement, small ({size['n_cams']} x {size['n_pts']}, {size['B']} priors at "
+                f"{size['H']}x{size['W']}), {iters} LM iterations, card vs CPU: changed maps "
+                f"{'equal' if g['changed'] == c['changed'] else 'DIFFER'}; {gap} (tolerances "
+                f"{ {k: tol[k] for k in gap} }); accepted steps card, CPU {accepted}")
+        print(line)
+        bad = [k for k in gap if not gap[k] <= tol[k]]
+        if g["changed"] != c["changed"] or bad or (iters == LATCH_FREE_ITERS and any(a != b for a, b in accepted.values())):
+            raise AssertionError(line)
+        gaps.update(gap)
+    return gaps
+
+
 def small_reference(dev):
     """The chain at a small size on the card (kernels) and on the CPU
     (plain versions): the same inputs must give the same result, with the
@@ -1825,6 +2168,8 @@ def main():
     dc_phase(dev, inputs.bundle, *inputs.priors.z_gt.shape[1:])
     estimators_phase(dev, inputs.bundle, np.random.default_rng(SEED + 2))
     scene_phase(dev, inputs.bundle, out, np.random.default_rng(SEED + 4))
+    _, scene_launches = scene_refinement_phase(dev, inputs.bundle, counted)
+    scene_refinement_card_vs_cpu(dev)
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 
@@ -1849,6 +2194,7 @@ def main():
         ))
         print(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library {k['library_ms']}, "
               f"bound {bound:.5f} ms), {n} launches on the main path")
+    print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ beside it slice by slice and never imports it (nor jax). So far: the
 mapper's refinement step with its uncertainty chain — point covariances,
 BiNI gate + IRLS/PCG solve, diag(H⁻¹) at the keypoints and the updated
 depth variances, the depth-consistency check's device core, device-side
-depth rows, dense LM-Schur bundle adjustment — and the geometry and
-robust estimators that registration and geometric verification import.
+depth rows, dense LM-Schur bundle adjustment — driven from the scene
+(the Reconstruction, per-image priors, the BA problem and the Optimizer's
+dense path), and the geometry and robust estimators that registration
+and geometric verification import.
 
 Layout (each module mirrors its counterpart in mpsfm_tpu/):
   geometry/rotations.py     quaternion / SE(3) math
@@ -28,10 +30,20 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
                             builders
   integration/bini_fused.py BiNI PCG core + fixed-budget solve (CUDA kernel K2)
   integration/bini_diag.py  deflated PCG of diag(H⁻¹) (CUDA kernel K3)
-  scene/image_priors.py     the updated keypoint depth variances
+  ba/problem.py             the BA problem from the Reconstruction (host
+                            passes, padded BAData / DenseBAData tensors)
+  ba/shift_scale.py         prior shift/scale, truncation multiplier (host)
+  mapper/optimizer.py       the Optimizer's dense path (ba, ba_fused,
+                            refine_3d_points, point covariances)
+  scene/reconstruction.py, corrgraph.py, correspondences.py
+                            the scene's host state, verification
+  scene/priors.py           Depth and Normals priors (host numpy)
+  scene/image_priors.py     ImagePriors and the bundle-level functions of the
+                            integration and the int_covs chain
   kernels.py                nvcc build + ctypes loader for csrc/*.cu
   convert.py                JAX-package state (numpy) -> port tensors:
-                            BA data, BiNI inputs, cameras, poses, DC inputs
+                            BA data, BiNI inputs, cameras, poses, DC
+                            inputs, the Reconstruction, ImagePriors
 
 Precision policy: everything is float32 with TF32 off for matmuls and
 cuDNN, the counterpart of the JAX package's forced "highest" matmul

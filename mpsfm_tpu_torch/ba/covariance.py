@@ -13,8 +13,9 @@ sides through ba/cholesky.cholesky_solve, i.e. K1 with many right-hand
 sides on the card. Gauge: frozen camera dims (cam_dof 0) get identity
 rows, as in the BA.
 
-The host wrapper `calculate_point_covs` (which stores the covariances
-into a reconstruction) is not ported: it needs the scene state.
+The host wrapper `calculate_point_covs` parks the device covariances in
+the reconstruction's LazyCovDict (no host read until a host consumer
+asks; the integration's anchors read them on the device).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import torch
 from mpsfm_tpu_torch.ba import losses
 from mpsfm_tpu_torch.ba.cholesky import cholesky_solve
 from mpsfm_tpu_torch.ba.solver import BAData, _assemble, _cam_reduce_last, _seg_reduce_last, inv3x3
+
+MAX_CAMS_DENSE = 512  # cameras up to which the dense reduced system is factored
 
 
 def point_covariances(data: BAData):
@@ -65,3 +68,25 @@ def point_covariances(data: BAData):
     X = cholesky_solve(S + 1e-8 * torch.eye(6 * C, dtype=dtype, device=dev), rhs)
     X = X.reshape(6 * C, P, 3).permute(1, 0, 2)
     return Binv + torch.einsum("pkl,pkm->plm", TB, X)
+
+
+def calculate_point_covs(rec, problem, max_cams_dense: int = MAX_CAMS_DENSE):
+    """Compute the covariances of a BAProblem's points (K1 many on the
+    card) and store them into rec.point_covs (reference
+    bundle_adjustment.py:260-261): parked on the device in a LazyCovDict,
+    read to the host otherwise. Raises ValueError above max_cams_dense
+    cameras (the dense reduced system)."""
+    import numpy as np
+
+    if problem.n_cams > max_cams_dense:
+        raise ValueError(f"dense covariance limited to {max_cams_dense} cams")
+    cov_dev = point_covariances(problem.data)
+    pend = getattr(rec.point_covs, "set_pending", None)
+    if pend is not None:
+        # defer the device->host read to the first host access (LazyCovDict)
+        pend(cov_dev, [int(p) for p in problem.pt_ids])
+        return cov_dev
+    cov = cov_dev.double().cpu().numpy()
+    for i, pid in enumerate(problem.pt_ids):
+        rec.point_covs[int(pid)] = cov[i]
+    return cov

@@ -7,7 +7,8 @@ state. Each device converter takes host arrays, e.g.
 `{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
 and returns tensors on `device` (the card unless the caller asks for the
 CPU; no GPU raises, see `resolve_device`); `reconstruction` builds the
-port's host-side Reconstruction.
+port's host-side Reconstruction and `image_priors` the per-image prior
+state attached to it.
 """
 
 from __future__ import annotations
@@ -153,4 +154,51 @@ def reconstruction(rec) -> Reconstruction:
     for pid in reversed(holes):
         out.delete_point3D(pid)
     out.xyz[: len(out.alive)] = np.asarray(rec.xyz, np.float64)[: len(out.alive)]  # dead slots keep their xyz
+    return out
+
+
+def image_priors(pri, rec, device="cuda"):
+    """A JAX package ImagePriors' state, read duck-typed, as a port
+    ImagePriors on `rec` (a port Reconstruction, e.g. from
+    `reconstruction`) with its device rows on `device`: the conf; every
+    Depth and Normals attribute (arrays copied; a device working map
+    `_data_dev` read once to the host and put on `device`, its lazy host
+    copy `_data` kept as the source has it); the Integrator's params,
+    energy_old and integrated. The device caches start empty. Sets
+    rec.images[imid].priors, .depth and .normals, as the JAX pipeline
+    attaches them."""
+    from mpsfm_tpu_torch.config import Config
+    from mpsfm_tpu_torch.integration.bini import Integrator
+    from mpsfm_tpu_torch.scene.image_priors import ImagePriors
+    from mpsfm_tpu_torch.scene.priors import Depth, Normals
+
+    dev = resolve_device(device)
+
+    def state(src, cls):
+        out = cls.__new__(cls)
+        for k, v in vars(src).items():
+            if k == "conf":
+                v = Config.create(copy.deepcopy(dict(v)))
+            elif k == "_data_dev":
+                v = None if v is None else torch.tensor(np.asarray(v), device=dev)
+            else:
+                v = copy.deepcopy(v)
+            setattr(out, k, v)
+        return out
+
+    out = ImagePriors.__new__(ImagePriors)
+    out.conf = Config.create(copy.deepcopy(dict(pri.conf)))
+    out.device = dev
+    out.rec = rec
+    out.imid = pri.imid
+    out.depth = state(pri.depth, Depth)
+    out.normals = state(pri.normals, Normals)
+    out.integrator = Integrator(bini_params(pri.integrator.params._asdict()), device=dev)
+    out.integrator.energy_old = pri.integrator.energy_old
+    out.integrator.integrated = pri.integrator.integrated
+    if hasattr(pri, "int_covs_applied"):
+        out.int_covs_applied = pri.int_covs_applied
+    out._reset_caches()
+    im = rec.images[pri.imid]
+    im.priors, im.depth, im.normals = out, out.depth, out.normals
     return out

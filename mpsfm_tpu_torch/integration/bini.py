@@ -224,8 +224,11 @@ def _assemble_batch_anchors(anch, cov, pairs):
     Slot codes: >=0 -> val is the anchor depth and its log-depth precision
     is d²/zvar with zvar = R2·cov[slot]·R2ᵀ; -1 -> zvar 1e-2; -2 -> val IS
     the precision. Out-of-range coordinates mark padding (dropped). With
-    two anchors on one pixel, prec_sparse keeps the max and z_sparse one of
-    them (unspecified which, as in the JAX package)."""
+    two anchors on one pixel, prec_sparse keeps the max and z_sparse the
+    last anchor's, as the reference's numpy assignment does
+    (process_sparse_depth) and XLA's scatter on the CPU: the winner is
+    chosen by a max over anchor indices, so every device keeps the same
+    one (a plain scatter on the card keeps an unspecified one)."""
     z0 = torch.stack([q[0] for q in pairs])  # (B,H,W)
     stat8 = torch.stack([q[1] for q in pairs])  # (B,8,H,W)
     Bn, H, W = z0.shape
@@ -240,7 +243,9 @@ def _assemble_batch_anchors(anch, cov, pairs):
     # dropped anchors scatter into a spare slot past the image
     flat = torch.where(oky & okx, ay * W + ax, torch.full_like(ay, H * W))
     prec_sparse = z0.new_zeros((Bn, H * W + 1)).scatter_reduce_(1, flat, prec, "amax")
-    z_sparse = z0.new_zeros((Bn, H * W + 1)).scatter_(1, flat, anch[:, 3])
+    idx = torch.arange(anch.shape[-1], device=anch.device).expand_as(flat)
+    win = flat.new_full((Bn, H * W + 1), -1).scatter_reduce_(1, flat, idx, "amax")
+    z_sparse = torch.where(win >= 0, torch.gather(anch[:, 3], 1, win.clamp_min(0)), 0.0)
     meta = anch[:, 5]
     dyn = torch.stack(
         [
@@ -324,6 +329,12 @@ def resize_log_dev(zlog, shift, out_hw):
         + d[y1i][:, x1i] * fx * fy
     )
     return torch.log(v.clamp_min(1e-8))
+
+
+def prior_z0(stat8):
+    """z_prior row of the cached static rows (8,H,W): the z0 when the
+    working depth is not activated (log data_prior)."""
+    return stat8[1]
 
 
 def _diag_inverse_at_impl(inp: BiniInputs, p: BiniParams, z, rows, cols, chunk: int = 128):
