@@ -114,6 +114,27 @@
    the small size on the card and on the CPU agrees (z, covariances,
    uncertainty_update, costs; poses, points and the truncation multiplier
    with LM iterations that end before the rel_tol latch).
+9. Mapping a scene (slice 6b): MpsfmMapper on the card, with the main
+   path's mapper conf (ba.max_iters 20, int_covs and the depth-consistency
+   check on, 512 hypotheses a registration), over 12 images of a 640×480
+   camera (focal 520, integration grid 387×290) seeing 4096 points on the
+   corner of two planes (a numpy copy of tests/synthetic.PlaneScene, wedge,
+   0.4 px keypoint noise, 10% outlier matches, depth priors with a 0.9-1.1
+   scale error and 2% noise), verified by Correspondences.populate on the
+   card; the launch counts set to 0 just before. Held: every image
+   registered, ATE after a similarity alignment below 0.05, at least 40% of
+   the points in the map, int_covs applied and point covariances parked,
+   each of K1, K1 many, K2 and K3 launched; printed: the wall, the
+   registered count and order, points, ATE, launches, each registration's
+   wall and the phase timers. Then K1 on the last global BA's reduced
+   system, K2 on the phase's PCG with the most lanes (then CG iterations)
+   and on its PCG with the most CG iterations, and K3 at
+   int_covs_bundle_batched's shapes of the final map, each held to its
+   plain version and timed. Last, the small scene of
+   __graft_entry__.dryrun_pipeline (5 images × 200 points, seed 3) mapped
+   on the card and on the CPU from one verification and the same
+   registration samples: the same images in the same order, point counts
+   within 5%, both ATEs below 0.05.
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -123,7 +144,8 @@ count, the wall time per phase (the depth-consistency check's with its 8
 scores), the consistent scene's two scores, the estimators' times and
 checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
-own), a `{"kernels": [...]}` line, and last
+own), the mapping phase's lines and launches, a `{"kernels": [...]}` line,
+and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -187,6 +209,12 @@ K1_TOL = 1e-4  # max |Δx| of K1 vs its plain version
 # update that misses one 32×64 tile of one panel is off by a hundred times it
 # or more, where the absolute bound alone may not see it (|x| ~ 1e-3 at shift 1).
 K1_REL = {1.0: 1e-5, 0.01: 1e-4}
+# The mapping phase's point-covariance system (κ ≈ 1.2e9, its diagonal 1 .. 1e9): float32 alone
+# leaves the plain version 8.3e-4 to 2.4e-3 (max relative) and 8.6e-4 to 1.0e-3 (residual) from
+# the float64 solve there (H100), so kernel and plain are held within K1_ILL_REL of each other (a
+# missed tile is off by O(1)), and the kernel no farther from the float64 solve, in either
+# measure, than K1_ILL_RATIO times the plain version is.
+K1_ILL_REL, K1_ILL_RATIO = 1e-2, 2.0
 # max |Δz| in log-depth of K2 vs its plain version. Sound runs differ only in
 # the order of the dot products' sums (1.6e-6 at the PCG's tolerance, 1.7e-5
 # after the fixed budget's 5000 iterations, on an H100); k2_phase shows that a
@@ -734,6 +762,45 @@ def kernel_ms_by_name(fn, reps):
     return ms
 
 
+def k1_many_check(S, Bm, rel, what, f64=False):
+    """K1 many vs its plain version on (S, Bm): one launch, finite, max |ΔX|
+    ≤ K1_TOL, max |ΔX| / max |X| ≤ rel and ‖S·X − B‖_F / ‖B‖_F ≤ rel. With
+    f64, also the kernel's and the plain version's max relative error and
+    residual against the float64 solve, the kernel's within K1_ILL_RATIO
+    times the plain version's. Returns (max |ΔX|, a line)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    n0 = cholesky.KERNEL_MANY.launches
+    X = cholesky.cholesky_solve(S, Bm)
+    if cholesky.KERNEL_MANY.launches != n0 + 1:
+        raise AssertionError("K1 with many right-hand sides was not launched")
+    ref = cholesky.cholesky_solve_plain(S, Bm)
+    err = float((X - ref).abs().max())
+    rel_err = err / float(ref.abs().max())
+    S64, B64 = S.double(), Bm.double()
+
+    def residual(Y):
+        return float(torch.linalg.norm(S64 @ Y.double() - B64) / torch.linalg.norm(B64))
+
+    res = residual(X)
+    line = (f"{what}: max|kernel - plain| {err:.3e} (tolerance {K1_TOL}), relative {rel_err:.2e}, residual "
+            f"{res:.2e} (tolerance {rel}), max|X| {float(ref.abs().max()):.3g}")
+    ok = bool(torch.isfinite(X).all()) and err <= K1_TOL and rel_err <= rel and res <= rel
+    if f64:
+        X64 = torch.cholesky_solve(B64, torch.linalg.cholesky(S64))
+        scale = float(X64.abs().max())
+        e_k, e_p = (float((Y.double() - X64).abs().max()) / scale for Y in (X, ref))
+        r_p = residual(ref)
+        line += (f"; against the float64 solve: kernel {e_k:.2e} relative, residual {res:.2e}; plain {e_p:.2e}, "
+                 f"{r_p:.2e} (the kernel's within {K1_ILL_RATIO}x the plain version's)")
+        ok = ok and e_k <= K1_ILL_RATIO * e_p and res <= K1_ILL_RATIO * r_p
+    if not ok:
+        raise AssertionError(f"K1 many disagrees with its plain version at K={S.shape[0]}, N={Bm.shape[1]}: {line}")
+    return err, line
+
+
 def k1_many_phase(dev, rng):
     """K1 with many right-hand sides vs its plain version at K = 384, N =
     24 576 (the covariances' solve at the bench bundle: 6C × 3P), K = 390,
@@ -756,17 +823,7 @@ def k1_many_phase(dev, rng):
             A = rng.normal(size=(K, K)).astype(np.float32)
             S = torch.as_tensor(A @ A.T + shift * K * np.eye(K, dtype=np.float32), device=dev)
             Bm = torch.as_tensor(rng.normal(size=(K, N)).astype(np.float32), device=dev)
-            n0 = cholesky.KERNEL_MANY.launches
-            X = cholesky.cholesky_solve(S, Bm)
-            if cholesky.KERNEL_MANY.launches != n0 + 1:
-                raise AssertionError("K1 with many right-hand sides was not launched")
-            ref = cholesky.cholesky_solve_plain(S, Bm)
-            err = float((X - ref).abs().max())
-            rel_err = err / float(ref.abs().max())
-            res = float(torch.linalg.norm(S.double() @ X.double() - Bm.double()) / torch.linalg.norm(Bm.double()))
-            line = f"shift {shift}: max|kernel - plain| {err:.3e}, relative {rel_err:.2e}, residual {res:.2e} (tolerance {rel})"
-            if not (bool(torch.isfinite(X).all()) and err <= K1_TOL and rel_err <= rel and res <= rel):
-                raise AssertionError(f"K1 many disagrees with its plain version at K={K}, N={N}: {line}")
+            err, line = k1_many_check(S, Bm, rel, f"shift {shift}")
             parts.append(line)
             errs.append(err)
             if shift == 1.0:
@@ -2071,6 +2128,395 @@ def small_reference(dev):
         raise AssertionError(f"scatter-path covariances disagree card vs CPU: {rel}")
 
 
+# ---- the mapping phase (slice 6b) ----
+
+def _rotvec_quat(v):
+    th = np.linalg.norm(v)
+    if th < 1e-12:
+        return np.array([1.0, 0, 0, 0])
+    ax = v / th
+    return np.concatenate([[np.cos(th / 2)], np.sin(th / 2) * ax])
+
+
+# tests/synthetic.PlaneScene's defaults, the only values the mapping phases use: its plane
+# n·p = n_z·d0 and the wedge's second plane (normals before normalisation), keypoint noise (px),
+# outlier share of each pair's matches, visibility, depth prior noise (log) and scale error,
+# normal prior noise (deg), and the priors' conf
+SCENE_PLANES = [((0.25, -0.15, -1.0), 5.0), ((-0.45, 0.1, -1.0), 3.6)]
+KP_NOISE, OUTLIER_FRAC, VISIBILITY = 0.4, 0.1, 0.9
+DEPTH_NOISE, DEPTH_SCALE_ERR, NORMALS_NOISE_DEG = 0.02, (0.9, 1.1), 3.0
+PRIORS_CONF = {"depth": {"prior_uncertainty": False, "depth_uncertainty": 0.03}, "cg_max_iter": 200, "max_iter": 4,
+               "downscaled": True, "downscale_factor": 2}
+
+
+class MappingScene:
+    """A numpy copy of tests/synthetic.PlaneScene at its default noise
+    model (geometry and draws in the same order) that builds the port's
+    Reconstruction and ImagePriors: a tilted plane seen by cameras moving
+    along x, with wedge=True a second plane forming a corner (depth = the
+    nearer plane along each ray). Points on the surface in camera 0's view."""
+
+    def __init__(self, n_images=8, n_points=400, img_wh=(160, 120), focal=200.0, baseline=0.35, wedge=False,
+                 rng=None):
+        from mpsfm_tpu_torch.scene.reconstruction import Pose
+
+        self.rng = rng or np.random.default_rng(0)
+        self.W, self.H = img_wh
+        self.focal = focal
+        self.wedge = wedge
+        self.planes = [(np.array(n) / np.linalg.norm(n), d0) for n, d0 in SCENE_PLANES[:1 + wedge]]
+        self.poses = [Pose(_rotvec_quat(np.array([0.01, 0.015, 0.005]) * i),
+                           np.array([-baseline * i, 0.03 * i, 0.02 * i])) for i in range(n_images)]
+        u = self.rng.uniform(-0.55, 0.55, n_points)
+        v = self.rng.uniform(-0.45, 0.45, n_points)
+        z = self._ray_depth(u, v)
+        self.points = np.stack([u * z, v * z, z], -1)
+
+    def _ray_depth(self, u, v, pose=None):
+        """Depth along normalized rays (u, v, 1) in camera 0's frame (pose
+        None) or pose's: the nearest plane's."""
+        r = np.stack([u, v, np.ones_like(u)], -1)
+        if pose is None:
+            c = np.zeros(3)
+        else:
+            r = np.einsum("ij,...j->...i", pose.rotation_matrix().T, r)
+            c = pose.center()
+        best = np.full(u.shape, np.inf)
+        for n, d0 in self.planes:
+            denom = np.einsum("i,...i->...", n, r)
+            s = (n[2] * d0 - n @ c) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+            best = np.minimum(best, np.where(s > 0.05, s, np.inf))
+        return np.where(np.isfinite(best), best, 0.1)
+
+    def _rays(self):
+        xx, yy = np.meshgrid(np.arange(self.W, dtype=np.float64), np.arange(self.H, dtype=np.float64))
+        return (xx - self.W / 2) / self.focal, (yy - self.H / 2) / self.focal
+
+    def plane_depth(self, pose):
+        return np.clip(self._ray_depth(*self._rays(), pose), 0.1, None)
+
+    def cam_normals(self, pose):
+        R = pose.rotation_matrix()
+        if not self.wedge:
+            return np.broadcast_to(R @ self.planes[0][0], (self.H, self.W, 3)).copy()
+        u, v = self._rays()
+        r = np.einsum("ij,hwj->hwi", R.T, np.stack([u, v, np.ones_like(u)], -1))
+        c = pose.center()
+        depths = []
+        for n, d0 in self.planes:
+            denom = np.einsum("i,hwi->hw", n, r)
+            s = (n[2] * d0 - n @ c) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+            depths.append(np.where(s > 0.05, s, np.inf))
+        n1, n2 = (R @ n for n, _ in self.planes)
+        return np.where((depths[1] < depths[0])[..., None], n2[None, None], n1[None, None]).copy()
+
+    def build(self, device, int_wh=None):
+        """(rec, keypoints, matches, truth) as PlaneScene.build gives them,
+        with ImagePriors on `device`; int_wh is the integration grid (the
+        image by default)."""
+        from mpsfm_tpu_torch.scene.image_priors import ImagePriors
+        from mpsfm_tpu_torch.scene.reconstruction import HostCamera, ImageRecord, Pose, Reconstruction
+
+        rng = self.rng
+        rec = Reconstruction()
+        cam = HostCamera(1, np.array([self.focal, self.focal, self.W / 2, self.H / 2]), self.W, self.H)
+        cam.int_width, cam.int_height = int_wh or (self.W, self.H)
+        rec.add_camera(cam)
+        keypoints, kp_of_point = {}, {}
+        for i, pose in enumerate(self.poses):
+            im = ImageRecord(i, f"im{i}.jpg", 1)
+            p_cam = pose.transform(self.points)
+            z = p_cam[:, 2]
+            px = p_cam[:, :2] / z[:, None] * self.focal + np.array([self.W / 2, self.H / 2])
+            vis = ((z > 0.1) & (px[:, 0] > 2) & (px[:, 0] < self.W - 2) & (px[:, 1] > 2) & (px[:, 1] < self.H - 2)
+                   & (rng.uniform(size=len(z)) < VISIBILITY))
+            if self.wedge:  # the point must be the nearest surface
+                dmap = self.plane_depth(pose)
+                ui = np.clip(px[:, 0].astype(int), 0, self.W - 1)
+                vi = np.clip(px[:, 1].astype(int), 0, self.H - 1)
+                vis &= z <= dmap[vi, ui] * 1.02 + 0.02
+            idxs = np.where(vis)[0]
+            kps = px[idxs] + rng.normal(scale=KP_NOISE, size=(len(idxs), 2))
+            keypoints[im.name] = kps
+            kp_of_point.update({(i, int(g)): k for k, g in enumerate(idxs)})
+            im.keypoints = kps
+            im.point3D_ids = np.full(len(kps), -1, np.int64)
+            rec.add_image(im)
+        matches = {}
+        for i in range(len(self.poses)):
+            for j in range(i + 1, len(self.poses)):
+                shared = [p for p in range(len(self.points)) if (i, p) in kp_of_point and (j, p) in kp_of_point]
+                if len(shared) < 16:
+                    continue
+                m = np.array([[kp_of_point[(i, p)], kp_of_point[(j, p)]] for p in shared], np.int64)
+                n_out = int(OUTLIER_FRAC * len(m))  # 1 at least, of 16 matches or more
+                rows = rng.choice(len(m), n_out, replace=False)
+                m[rows, 1] = rng.integers(0, len(keypoints[f"im{j}.jpg"]), n_out)
+                matches[(f"im{i}.jpg", f"im{j}.jpg")] = np.unique(m, axis=0)
+        rad = np.deg2rad(NORMALS_NOISE_DEG)
+        for i, pose in enumerate(self.poses):
+            depth = self.plane_depth(pose) * rng.uniform(*DEPTH_SCALE_ERR)
+            depth = depth * np.exp(rng.normal(scale=DEPTH_NOISE, size=depth.shape))
+            normals = self.cam_normals(pose)
+            v = rng.normal(scale=rad, size=normals.shape)
+            v -= (v * normals).sum(-1, keepdims=True) * normals
+            n = normals + v
+            normals_dict = {"normals": n / np.clip(np.linalg.norm(n, axis=-1, keepdims=True), 1e-12, None),
+                            "normals_variance": np.full(normals.shape[:2], rad**2)}
+            pri = ImagePriors(PRIORS_CONF, rec, i, depth_dict={"depth": depth}, normals_dict=normals_dict,
+                              device=device)
+            rec.images[i].priors, rec.images[i].depth, rec.images[i].normals = pri, pri.depth, pri.normals
+        truth = {"poses": [Pose(p.q.copy(), p.t.copy()) for p in self.poses], "points": self.points}
+        return rec, keypoints, matches, truth
+
+
+def ate_rmse(rec, gt_poses):
+    """ATE RMSE of the registered camera centres after a similarity
+    alignment (Umeyama), as tests/synthetic.ate_rmse computes it."""
+    est = np.stack([rec.images[i].pose.center() for i in rec.reg_image_ids()])
+    gt = np.stack([gt_poses[i].center() for i in rec.reg_image_ids()])
+    mu_s, mu_d = est.mean(0), gt.mean(0)
+    sc, dc = est - mu_s, gt - mu_d
+    U, D, Vt = np.linalg.svd(dc.T @ sc / len(est))
+    S = np.eye(3)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[2, 2] = -1
+    R = U @ S @ Vt
+    s = np.trace(np.diag(D) @ S) / ((sc ** 2).sum() / len(est))
+    aligned = (s * (R @ est.T)).T + (mu_d - s * R @ mu_s)
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+
+
+# the mapping scene: 12 images (scripts/bench_mapping.py), a 640×480 camera at focal 520 with the
+# integration grid of the main path (387×290), 4096 points on the corner of two planes, the camera
+# moving 0.18 a frame (bench_mapping's baseline); the small scene is __graft_entry__.dryrun_pipeline's
+MAPPING = dict(seed=SEED + 7, n_images=12, n_points=4096, img_wh=(640, 480), focal=520.0, baseline=0.18, wedge=True,
+               int_wh=(387, 290), num_hyp=512)
+MAPPING_SMALL = dict(seed=3, n_images=5, n_points=200, num_hyp=128)
+# the main path's mapper conf (configs/classical-nn_measured.yaml's mapper section over the defaults),
+# with the uncertainty chain and the depth-consistency check on, on one card
+MAPPER_CONF = {"int_covs": True, "depth_consistency": True, "ba": {"max_iters": 20, "dist_ba": "off"}}
+# the bounds: ATE of tests/test_mapper_e2e.py:40 on a scene of the same extent; the share of the
+# scene's points in the map; the point counts card vs CPU
+MAPPING_ATE, MAPPING_POINT_SHARE, MAPPING_POINTS_REL = 0.05, 0.4, 0.05
+# the full scene's bounds, set from its sound runs on the card (ATE 0.00071, 99.8% of the points
+# mapped): a map several times worse than those fails
+MAPPING_FULL_BOUNDS = (0.005, 0.95)
+
+
+def mapping_state(dev, seed, n_images, n_points, num_hyp, img_wh=(160, 120), focal=200.0, baseline=0.35,
+                  wedge=False, int_wh=None, corr=None):
+    """A MappingScene on `dev`, its matches verified by
+    Correspondences.populate there (corr: a populated Correspondences
+    whose verification is taken instead, as convert.correspondences copies
+    it). Returns (rec, corr, truth, seconds of the build, of populate)."""
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.scene.correspondences import Correspondences
+
+    t = time.perf_counter()
+    scene = MappingScene(rng=np.random.default_rng(seed), n_images=n_images, n_points=n_points, img_wh=img_wh,
+                         focal=focal, baseline=baseline, wedge=wedge)
+    rec, keypoints, matches, truth = scene.build(dev, int_wh=int_wh)
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    if corr is None:
+        corr = Correspondences({"num_hyp": num_hyp}, rec, device=dev)
+        corr.populate(keypoints, matches)
+    else:
+        corr = convert.correspondences(corr, rec, device=dev)
+    return rec, corr, truth, build_s, time.perf_counter() - t
+
+
+def run_mapping(rec, corr, dev, num_hyp, conf=None):
+    """MpsfmMapper on `dev` over (rec, corr) with the main path's conf and
+    `num_hyp` hypotheses a registration. Returns (rec, ok, mapper, wall
+    seconds, [(imid, seconds, ok) of each next-image registration])."""
+    import torch
+
+    from mpsfm_tpu_torch.mapper import MpsfmMapper
+
+    dev = torch.device(dev)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    mapper = MpsfmMapper({**MAPPER_CONF, "registration": {"num_hyp": num_hyp}, **(conf or {})}, rec, corr, device=dev)
+    reg = mapper.registration
+    register = reg.register_and_triangulate_next_image
+    walls = []
+
+    def timed(imid, ref_imids=None):
+        t = time.perf_counter()
+        ok = register(imid, ref_imids=ref_imids)
+        sync()
+        walls.append((imid, time.perf_counter() - t, ok))
+        return ok
+
+    reg.register_and_triangulate_next_image = timed
+    t = time.perf_counter()
+    rec, ok = mapper()
+    sync()
+    return rec, ok, mapper, time.perf_counter() - t, walls
+
+
+def mapping_summary(rec, ok, mapper, truth, n_points, bounds=(MAPPING_ATE, MAPPING_POINT_SHARE)):
+    """The mapped scene's numbers; raises unless it registered every image
+    with an ATE below bounds[0] and bounds[1] of the n_points in the map,
+    and the uncertainty chain ran."""
+    ate_bound, share = bounds
+    ate = ate_rmse(rec, truth["poses"]) if rec.num_reg_images() >= 3 else float("inf")
+    int_covs = [i for i, im in rec.images.items() if getattr(getattr(im, "priors", None), "int_covs_applied", False)]
+    out = dict(ok=bool(ok), registered=rec.num_reg_images(), images=rec.num_images(), points=rec.num_points3D(),
+               ate=ate, order=[i for i in mapper.nextview.registration_order if i is not None], int_covs=int_covs,
+               point_covs=len(rec.point_covs))
+    if not (ok and out["registered"] == out["images"] and ate < ate_bound and out["points"] >= share * n_points
+            and int_covs and out["point_covs"] > 0):
+        raise AssertionError(f"mapping: {out} (bounds: every image registered, ATE < {ate_bound}, >= {share} of "
+                             f"{n_points} points, int_covs applied, point covariances)")
+    return out
+
+
+@contextlib.contextmanager
+def last_call(module, name, size):
+    """Swap module.name for a wrapper that keeps the arguments of its last
+    call among those of the largest size(args, result) (a dict under
+    "args"); the wrapped function runs as before, launches included."""
+    fn = getattr(module, name)
+    kept = {"size": None, "args": None}
+
+    def wrapper(*args):
+        out = fn(*args)
+        n = size(args, out)
+        if kept["size"] is None or n >= kept["size"]:
+            kept["size"], kept["args"] = n, args
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def mapping_phase(dev, counted):
+    """MpsfmMapper on the card over the full mapping scene (MAPPING), with
+    the launch counts set to 0 just before: every image registered, ATE,
+    points, the uncertainty chain and each kernel launched; wall, launches,
+    each registration's wall and the phase timers printed. Then K1 on the
+    last global BA's reduced system, K1 many on the largest point-covariance
+    solve (S + 1e-8·I and its right-hand sides), K2 on the phase's PCG with the most
+    lanes (then CG iterations) and on its PCG with the most CG iterations,
+    and K3 at int_covs_bundle_batched's shapes of the final map, each held
+    to its plain version and timed. Returns (summary, launches)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import covariance, dense
+    from mpsfm_tpu_torch.integration import bini
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    dev = torch.device(dev)
+    cfg = dict(MAPPING)
+    num_hyp = cfg.pop("num_hyp")
+    rec, corr, truth, build_s, populate_s = mapping_state(dev, num_hyp=num_hyp, **cfg)
+    kps = [len(im.keypoints) for im in rec.images.values()]
+    print(f"mapping scene: {cfg['n_images']} images {cfg['img_wh'][0]}x{cfg['img_wh'][1]} (focal {cfg['focal']}, "
+          f"integration grid {cfg['int_wh'][0]}x{cfg['int_wh'][1]}), {cfg['n_points']} points, keypoints an image "
+          f"{min(kps)} .. {max(kps)}, {len(corr.image_pairs())} verified pairs; built in {build_s:.3f} s, "
+          f"Correspondences.populate ({num_hyp} hypotheses) {populate_s:.3f} s wall")
+    TIMERS.reset()
+    for k in counted.values():
+        k.launches = 0
+    # K2 is held at two of the run's PCGs: the one with the most lanes (the global integrations' shape)
+    # and, among those, the most CG iterations; and the one with the most CG iterations of all lanes
+    # together. The global integrations start from nearly converged maps and stop after a few
+    # iterations; the busiest solves are those of a newly registered image. Reading the iteration
+    # counts adds a read to each PCG.
+    def cg_iterations(a, out):
+        return int(out[1].sum())
+
+    with last_call(dense, "cholesky_solve", lambda a, out: a[0].shape[0]) as k1_args, \
+            last_call(covariance, "cholesky_solve", lambda a, out: a[1].numel()) as k1_many_args, \
+            last_call(bini, "_pcg", lambda a, out: (a[3].shape[0], cg_iterations(a, out))) as k2_wide, \
+            last_call(bini, "_pcg", cg_iterations) as k2_busy:
+        rec, ok, mapper, wall, walls = run_mapping(rec, corr, dev, num_hyp)
+    launches = {name: k.launches for name, k in counted.items()}
+    out = mapping_summary(rec, ok, mapper, truth, cfg["n_points"], MAPPING_FULL_BOUNDS)
+    print(f"mapping: {wall:.3f} s wall; registered {out['registered']}/{out['images']} in the order "
+          f"{out['order']}; {out['points']} points ({out['points'] / cfg['n_points']:.4f} of the scene's, bound "
+          f"{MAPPING_FULL_BOUNDS[1]}); ATE {out['ate']:.6f} (bound {MAPPING_FULL_BOUNDS[0]}); int_covs on images {out['int_covs']}, {out['point_covs']} point "
+          f"covariances; launches {json.dumps(launches)}")
+    print("mapping registrations (image, s wall, ok): "
+          + ", ".join(f"({i}, {s:.3f}, {'ok' if g else 'failed'})" for i, s, g in walls))
+    print("mapping phase timers (s wall x calls):\n" + TIMERS.summary())
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched in the mapping phase")
+    # the last global BA's reduced system is as ill-conditioned as K1_REL's less dominant class (its
+    # condition number printed), so it takes that class's bound; the point covariances' system is
+    # held to K1_ILL_REL and the float64 solve
+    from mpsfm_tpu_torch.ba import cholesky
+    from mpsfm_tpu_torch.integration import bini_diag, bini_fused
+
+    S, b = k1_args["args"]
+    kappa = float(torch.linalg.cond(S.double()))
+    _, _, line = k1_check(S, b, K1_REL[0.01], f"K1 at the mapping phase's last global BA (K={S.shape[0]}, "
+                          f"condition number {kappa:.3g})")
+    times = {"K1": (cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20),
+                    cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2))}
+    print(line)
+    S, Bm = k1_many_args["args"]
+    kappa = float(torch.linalg.cond(S.double()))
+    _, line = k1_many_check(S, Bm, K1_ILL_REL, f"K1 many at the mapping phase's largest point-covariance solve "
+                            f"(K={S.shape[0]}, N={Bm.shape[1]}, condition number {kappa:.3g})", f64=True)
+    times["K1 many"] = (cuda_ms(lambda: cholesky.cholesky_solve(S, Bm), 10),
+                        cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 2))
+    print(line)
+    for name, kept in (("K2 widest", k2_wide), ("K2 busiest", k2_busy)):
+        st, b2, dg, z, iters, tol, active = kept["args"]
+        k2 = (st, b2, dg, z, iters, tol)
+        B, H, W = z.shape
+        k2_pcg_check(f"mapping phase, its {name[3:]} PCG: B={B} {H}x{W}", k2, active)
+        times[name] = (cuda_ms(lambda: bini_fused.pcg(*k2, active), 5),
+                       cuda_ms(lambda: bini_fused.pcg_plain(*k2, active), 1))
+    pris = [rec.images[i].priors for i in rec.reg_image_ids()]
+    k3 = scene_k3_args(rec, pris, dev)
+    k3_check("mapping phase, int_covs of the final map", k3)
+    times["K3"] = (cuda_ms(lambda: bini_diag.deflated_pcg(*k3), 2), cuda_ms(lambda: bini_diag.deflated_pcg_plain(*k3), 1))
+    print("mapping phase kernels at the phase's shapes, kernel / plain version (ms): "
+          + ", ".join(f"{k} {a:.4f} / {p:.3f}" for k, (a, p) in times.items()))
+    return out, launches
+
+
+def mapping_card_vs_cpu(dev):
+    """MpsfmMapper on the small scene (MAPPING_SMALL: 5 images × 200
+    points, seed 3, dryrun_pipeline's) on the card and on the CPU, from one
+    verification (populate on the card, copied to the CPU) and the same
+    registration samples: the same registered images in the same order,
+    point counts within MAPPING_POINTS_REL, both ATEs below MAPPING_ATE.
+    Returns both summaries."""
+    import torch
+
+    cfg = dict(MAPPING_SMALL)
+    num_hyp = cfg.pop("num_hyp")
+    conf = {"ba": {"max_iters": 8, "dist_ba": "off"}}
+    runs, corr = {}, None
+    for d in (torch.device(dev), torch.device("cpu")):
+        rec, corr_d, truth, _, _ = mapping_state(d, num_hyp=num_hyp, corr=corr, **cfg)
+        corr = corr or corr_d
+        rec, ok, mapper, wall, _ = run_mapping(rec, corr_d, d, num_hyp, conf)
+        runs[d.type] = dict(mapping_summary(rec, ok, mapper, truth, 0), wall=wall)
+    g, c = runs["cuda"], runs["cpu"]
+    gap = abs(g["points"] - c["points"]) / c["points"]
+    line = (f"mapping, small scene ({cfg['n_images']} x {cfg['n_points']}, seed {cfg['seed']}), card vs CPU: order "
+            f"{g['order']} / {c['order']}, points {g['points']} / {c['points']} (gap {gap:.4f}, bound "
+            f"{MAPPING_POINTS_REL}), ATE {g['ate']:.5f} / {c['ate']:.5f}, wall {g['wall']:.3f} / {c['wall']:.3f} s")
+    print(line)
+    if g["order"] != c["order"] or not gap <= MAPPING_POINTS_REL:
+        raise AssertionError(line)
+    return runs
+
+
 def profile_slice(inputs, dev, top=12):
     """Device time of one main-path run by kernel (torch.profiler), and the
     device's busy share of the run's wall time."""
@@ -2170,6 +2616,8 @@ def main():
     scene_phase(dev, inputs.bundle, out, np.random.default_rng(SEED + 4))
     _, scene_launches = scene_refinement_phase(dev, inputs.bundle, counted)
     scene_refinement_card_vs_cpu(dev)
+    _, mapping_launches = mapping_phase(dev, counted)
+    mapping_card_vs_cpu(dev)
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 
@@ -2195,6 +2643,7 @@ def main():
         print(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library {k['library_ms']}, "
               f"bound {bound:.5f} ms), {n} launches on the main path")
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
+    print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ BiNI gate + IRLS/PCG solve, diag(H⁻¹) at the keypoints and the updated
 depth variances, the depth-consistency check's device core, device-side
 depth rows, dense LM-Schur bundle adjustment — driven from the scene
 (the Reconstruction, per-image priors, the BA problem and the Optimizer's
-dense path), and the geometry and robust estimators that registration
-and geometric verification import.
+dense path), the geometry and robust estimators, and the mapper's
+control loop over them (MpsfmMapper: registration, triangulation,
+next-view selection, the depth-consistency checker), which maps a scene.
 
 Layout (each module mirrors its counterpart in mpsfm_tpu/):
   geometry/rotations.py     quaternion / SE(3) math
@@ -19,7 +20,8 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
                             fixed-budget RANSAC (samples given), two-view
                             geometry and classification
   mapper/depth_consistency.py  z-buffered cross-projection, whitened
-                            counts of a query against B refs, bundle score
+                            counts of a query against B refs, bundle score,
+                            the checker with its relaxation ladder
   ba/losses.py, solver.py   robust losses, BAData + assembly, LM helpers
   ba/cholesky.py            reduced-camera Cholesky solve, one or many
                             right-hand sides (CUDA kernels K1)
@@ -35,6 +37,10 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   ba/shift_scale.py         prior shift/scale, truncation multiplier (host)
   mapper/optimizer.py       the Optimizer's dense path (ba, ba_fused,
                             refine_3d_points, point covariances)
+  mapper/registration.py    init pair and next image (RANSACs on the device)
+  mapper/triangulator.py, image_selection.py
+                            track building and next-view ranking (host numpy)
+  mapper/mapper.py          MpsfmMapper, the incremental mapping loop
   scene/reconstruction.py, corrgraph.py, correspondences.py
                             the scene's host state, verification
   scene/priors.py           Depth and Normals priors (host numpy)
@@ -43,7 +49,8 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   kernels.py                nvcc build + ctypes loader for csrc/*.cu
   convert.py                JAX-package state (numpy) -> port tensors:
                             BA data, BiNI inputs, cameras, poses, DC
-                            inputs, the Reconstruction, ImagePriors
+                            inputs, the Reconstruction, ImagePriors,
+                            Correspondences
 
 Precision policy: everything is float32 with TF32 off for matmuls and
 cuDNN, the counterpart of the JAX package's forced "highest" matmul

@@ -7,8 +7,8 @@ state. Each device converter takes host arrays, e.g.
 `{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
 and returns tensors on `device` (the card unless the caller asks for the
 CPU; no GPU raises, see `resolve_device`); `reconstruction` builds the
-port's host-side Reconstruction and `image_priors` the per-image prior
-state attached to it.
+port's host-side Reconstruction, `image_priors` the per-image prior
+state attached to it and `correspondences` its verified pairs.
 """
 
 from __future__ import annotations
@@ -201,4 +201,30 @@ def image_priors(pri, rec, device="cuda"):
     out._reset_caches()
     im = rec.images[pri.imid]
     im.priors, im.depth, im.normals = out, out.depth, out.normals
+    return out
+
+
+def correspondences(corr, rec, device="cuda"):
+    """A populated Correspondences of either package, read duck-typed, as a
+    port Correspondences on `rec` (a port Reconstruction, e.g. from
+    `reconstruction`) whose RANSACs would run on `device`: the conf, each
+    pair's two-view geometry (config, inlier matches, pose as numpy,
+    tri_angle, E, inlier count), the correspondence graph built from the
+    same inlier matches in the same order, and the inlier match scores."""
+    from mpsfm_tpu_torch.config import Config
+    from mpsfm_tpu_torch.estimators.two_view import TwoViewGeometry
+    from mpsfm_tpu_torch.scene.correspondences import Correspondences
+
+    out = Correspondences(Config.create(copy.deepcopy(dict(corr.conf))).to_dict(), rec, device=device)
+    for imid, n in corr.cg._num_kps.items():
+        out.cg.add_image(imid, n)
+    for (i, j), g in corr._tvg.items():
+        pose = Rigid3d(np.array(g.pose.quat), np.array(g.pose.t))
+        E = None if g.E is None else np.array(g.E)
+        out._tvg[(i, j)] = TwoViewGeometry(int(g.config), np.asarray(g.inlier_matches).copy(), pose,
+                                            g.tri_angle, E, g.num_inliers)
+    for (i, j), m in corr.cg._pair_matches.items():
+        out.cg.add_correspondences(i, j, np.asarray(m).copy())
+    out.inlier_match_scores = dict(corr.inlier_match_scores)
+    out.cg.finalize()
     return out

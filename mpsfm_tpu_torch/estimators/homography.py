@@ -1,13 +1,15 @@
-"""Batched homography estimation for the two-view classification (port of
-mpsfm_tpu/estimators/homography.py).
+"""Batched homography estimation for the two-view classification, and the
+host-side decomposition of a calibrated homography that registration's
+planar init uses (port of mpsfm_tpu/estimators/homography.py).
 
-The host-side `decompose_homography_np` (OpenCV's decomposeHomographyMat)
-is not here: its only caller is registration, which comes with the port of
-the mapper.
+The JAX package decomposes with OpenCV's decomposeHomographyMat (K = I);
+the card's host has no OpenCV, so `decompose_homography_np` is the same
+analytic Malis-Vargas decomposition written in numpy float64.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from mpsfm_tpu_torch.estimators.essential import _normalize_points
@@ -43,3 +45,67 @@ def homography_transfer_error_sq(H, xy1, xy2):
     q = torch.cat([xy1, ones], -1) @ H.transpose(-1, -2)
     w = torch.where(q[..., 2].abs() < 1e-12, 1e-12, q[..., 2])
     return ((q[..., :2] / w[..., None] - xy2) ** 2).sum(-1)
+
+
+def _minor_opposite(S, row, col):
+    """-(the 2×2 minor of S at (row, col))."""
+    r = [i for i in range(3) if i != row]
+    c = [j for j in range(3) if j != col]
+    return S[r[0], c[1]] * S[r[1], c[0]] - S[r[0], c[0]] * S[r[1], c[1]]
+
+
+def _sign_nonneg(x):
+    return 1.0 if x >= 0 else -1.0
+
+
+def _rotation_from(Hn, tstar, n, v):
+    """R = Hn (I - (2/v) t* nᵀ), flipped to det +1."""
+    R = Hn @ (np.eye(3) - (2.0 / v) * np.outer(tstar, n))
+    return -R if np.linalg.det(R) < 0 else R
+
+
+def decompose_homography_np(H):
+    """Calibrated homography (normalized coords) -> candidate
+    (R, t_unit, n) triples, host-side (init-time only): the analytic
+    decomposition of Malis and Vargas ("Deeper understanding of the
+    homography decomposition for vision-based control", INRIA RR-6303,
+    2007), as OpenCV's decomposeHomographyMat computes it with K = I.
+    H is scaled by its middle singular value; a rotation (HᵀH = I) gives
+    one candidate with t = n = 0, else four: (Ra, ±ta, ±na) and
+    (Rb, ±tb, ±nb). t is returned at unit norm."""
+    Hn = np.asarray(H, np.float64)
+    Hn = Hn / np.linalg.svd(Hn, compute_uv=False)[1]
+    S = Hn.T @ Hn - np.eye(3)
+    if np.abs(S).max() < 1e-3:
+        return [(Hn, np.zeros(3), np.zeros(3))]
+    M00, M11, M22 = (max(_minor_opposite(S, i, i), 0.0) for i in range(3))
+    rt00, rt11, rt22 = np.sqrt(M00), np.sqrt(M11), np.sqrt(M22)
+    e01, e02, e12 = (_sign_nonneg(_minor_opposite(S, i, j)) for i, j in ((0, 1), (0, 2), (1, 2)))
+    # the candidate normals from the row of S with the largest |S_ii|
+    i = int(np.argmax(np.abs(np.diag(S))))  # the first on ties, as OpenCV picks it
+    if i == 0:
+        npa = np.array([S[0, 0], S[0, 1] + rt22, S[0, 2] + e12 * rt11])
+        npb = np.array([S[0, 0], S[0, 1] - rt22, S[0, 2] - e12 * rt11])
+    elif i == 1:
+        npa = np.array([S[0, 1] + rt22, S[1, 1], S[1, 2] - e02 * rt00])
+        npb = np.array([S[0, 1] - rt22, S[1, 1], S[1, 2] + e02 * rt00])
+    else:
+        npa = np.array([S[0, 2] + e01 * rt11, S[1, 2] + rt00, S[2, 2]])
+        npb = np.array([S[0, 2] - e01 * rt11, S[1, 2] - rt00, S[2, 2]])
+    trace = float(np.trace(S))
+    # OpenCV takes this square root in float32 (sqrtf)
+    v = 2.0 * float(np.sqrt(np.float32(max(1.0 + trace - M00 - M11 - M22, 0.0))))
+    r = np.sqrt(max(2.0 + trace + v, 0.0))
+    n_t = np.sqrt(max(2.0 + trace - v, 0.0))
+    na, nb = npa / np.linalg.norm(npa), npb / np.linalg.norm(npb)
+    esr = _sign_nonneg(S[i, i]) * r
+    ta_star = 0.5 * n_t * (esr * nb - n_t * na)
+    tb_star = 0.5 * n_t * (esr * na - n_t * nb)
+    out = []
+    for tstar, n in ((ta_star, na), (tb_star, nb)):
+        R = _rotation_from(Hn, tstar, n, v)
+        t = R @ tstar
+        nrm = np.linalg.norm(t)
+        t = t / nrm if nrm > 1e-9 else t
+        out += [(R, t, n), (R, -t, -n)]
+    return out

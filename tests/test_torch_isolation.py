@@ -1,5 +1,5 @@
-"""The port stands alone: it imports neither jax nor the JAX package (nor,
-at import time, PyYAML or h5py), its state-creating entry points refuse
+"""The port stands alone: it imports neither jax nor the JAX package nor
+OpenCV (nor, at import time, PyYAML or h5py), its state-creating entry points refuse
 to fall back to the CPU, and chip_smoke.py gives no result without a card
 or without the package.
 
@@ -47,8 +47,11 @@ need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag"
         "mpsfm_tpu_torch.utils.profiling", "mpsfm_tpu_torch.native", "mpsfm_tpu_torch.scene.corrgraph",
         "mpsfm_tpu_torch.scene.reconstruction", "mpsfm_tpu_torch.scene.correspondences",
         "mpsfm_tpu_torch.scene.priors", "mpsfm_tpu_torch.ba.problem", "mpsfm_tpu_torch.ba.shift_scale",
-        "mpsfm_tpu_torch.mapper.optimizer"}
-sys.exit(1 if bad or len(names) < 41 or not need <= set(names) else 0)
+        "mpsfm_tpu_torch.mapper.optimizer", "mpsfm_tpu_torch.mapper.image_selection",
+        "mpsfm_tpu_torch.mapper.triangulator", "mpsfm_tpu_torch.mapper.registration", "mpsfm_tpu_torch.mapper.mapper"}
+# the card's host has no OpenCV: no module of the port imports cv2
+bad += ["cv2"] if "cv2" in sys.modules else []
+sys.exit(1 if bad or len(names) < 45 or not need <= set(names) else 0)
 """
 
 
@@ -108,3 +111,24 @@ def test_chip_smoke_alone_fails(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_mapper_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
+    """MpsfmMapper, Registration and DepthConsistencyChecker run on the card
+    unless the caller asks for the CPU: without one their default raises."""
+    from mpsfm_tpu_torch.mapper import MpsfmMapper
+    from mpsfm_tpu_torch.mapper.depth_consistency import DepthConsistencyChecker
+    from mpsfm_tpu_torch.mapper.registration import Registration, run_ransac_pnp
+    from mpsfm_tpu_torch.scene.correspondences import Correspondences
+    from mpsfm_tpu_torch.scene.reconstruction import Reconstruction
+
+    rec = Reconstruction()
+    corr = Correspondences({}, rec, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: MpsfmMapper({}, rec, corr), lambda: Registration({}, rec, corr, None),
+                 lambda: DepthConsistencyChecker({}, rec),
+                 lambda: run_ransac_pnp(np.zeros((8, 3)), np.zeros((8, 2)), 1e-4)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    mapper = MpsfmMapper({}, rec, corr, device="cpu")
+    assert mapper.optimizer.device.type == mapper.registration.device.type == mapper.dc.device.type == "cpu"
