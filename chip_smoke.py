@@ -135,6 +135,25 @@
    on the card and on the CPU from one verification and the same
    registration samples: the same images in the same order, point counts
    within 5%, both ATEs below 0.05.
+10. The main path from images (slice 7): the port's pipeline.reconstruct
+   on the card over an RGB-D directory rendered here in numpy (the mapping
+   phase's geometry cut to 8 images: 640×480 at focal 520 on the corner of
+   two planes, each textured with a multi-octave noise; 8-bit gray PNGs, .npy
+   sensor depth with 1% log-normal noise, intrinsics.yaml in its JSON
+   form), under configs/classical-nn_measured.yaml (dist_ba off, caches
+   and depth output in the directory store: the card's host has no h5py):
+   pairs, classical features, mutual-NN matches, measured priors,
+   Correspondences.populate, ImagePriors, MpsfmMapper and the COLMAP
+   model. A warm-up run on a copy of the directory, then the measured run
+   with the launch counts set to 0 just before. Held: every stage's work
+   on the card, each of K1, K1 many, K2 and K3 launched, 8/8 registered,
+   ATE below 0.02, at least 4200 points, the written text model read back
+   equal to the map; printed: each pipe.* phase's wall, frames/s,
+   registered images, points, ATE and launches. Then tests/
+   test_pipeline_e2e.py's scene (5 images of 320×240) and conf card vs
+   CPU: the detector's keypoints as sets (≥ 99% within 0.01 px), the
+   matcher's matches, and the mapping on the CPU from the card's caches
+   (the same registered images, points within 5%, ATEs below 0.05).
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -144,8 +163,8 @@ count, the wall time per phase (the depth-consistency check's with its 8
 scores), the consistent scene's two scores, the estimators' times and
 checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
-own), the mapping phase's lines and launches, a `{"kernels": [...]}` line,
-and last
+own), the mapping phase's lines and launches, the pipeline phase's lines
+and launches, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -209,12 +228,16 @@ K1_TOL = 1e-4  # max |Δx| of K1 vs its plain version
 # update that misses one 32×64 tile of one panel is off by a hundred times it
 # or more, where the absolute bound alone may not see it (|x| ~ 1e-3 at shift 1).
 K1_REL = {1.0: 1e-5, 0.01: 1e-4}
-# The mapping phase's point-covariance system (κ ≈ 1.2e9, its diagonal 1 .. 1e9): float32 alone
-# leaves the plain version 8.3e-4 to 2.4e-3 (max relative) and 8.6e-4 to 1.0e-3 (residual) from
-# the float64 solve there (H100), so kernel and plain are held within K1_ILL_REL of each other (a
-# missed tile is off by O(1)), and the kernel no farther from the float64 solve, in either
-# measure, than K1_ILL_RATIO times the plain version is.
-K1_ILL_REL, K1_ILL_RATIO = 1e-2, 2.0
+# The point-covariance systems of the mapping and pipeline phases (κ ≈ 4e8 .. 1.2e9, the diagonal
+# 1 .. 1e9): float32 alone leaves the plain version 2e-5 to 3e-3 (max relative) and 4e-4 to 1.4e-3
+# (residual) from the float64 solve there (H100), so kernel and plain are held within K1_ILL_REL of
+# each other (a missed tile is off by O(1)), and the kernel no farther from the float64 solve, in
+# either measure, than K1_ILL_RATIO times the plain version is, as medians over S and
+# K1_ILL_TRIALS - 1 copies of it perturbed at float32's rounding (rounding_ensemble). On one system
+# the kernel's distance over the plain version's swings from 0.05 to 36 between such copies, and
+# cuSOLVER's float32 solve is past 2x the plain version's on a quarter of them
+# (k1_many_ill_probe.py), so one draw says nothing of the kernel; their medians do.
+K1_ILL_REL, K1_ILL_RATIO, K1_ILL_TRIALS = 1e-2, 2.0, 32
 # max |Δz| in log-depth of K2 vs its plain version. Sound runs differ only in
 # the order of the dot products' sums (1.6e-6 at the PCG's tolerance, 1.7e-5
 # after the fixed budget's 5000 iterations, on an H100); k2_phase shows that a
@@ -762,11 +785,36 @@ def kernel_ms_by_name(fn, reps):
     return ms
 
 
+def rounding_ensemble(S, n, seed=SEED):
+    """S and n - 1 copies of it, each entry times 1 + 2⁻²³·e (e standard
+    normal, symmetric in S): the same system up to float32's rounding."""
+    import torch
+
+    gen = torch.Generator(device=S.device).manual_seed(seed)
+    out = [S]
+    for _ in range(n - 1):
+        e = torch.randn(S.shape, generator=gen, device=S.device, dtype=torch.float64)
+        out.append((S.double() * (1 + 2.0 ** -23 * (e + e.T) / 2 ** 0.5)).to(S.dtype))
+    return out
+
+
+def f64_gaps(S, B, X):
+    """(max |X − X₆₄| / max |X₆₄|, ‖S·X − B‖_F / ‖B‖_F) against the float64
+    solve of S X₆₄ = B."""
+    import torch
+
+    S64, B64 = S.double(), B.double()
+    X64 = torch.cholesky_solve(B64, torch.linalg.cholesky(S64))
+    return (float((X.double() - X64).abs().max() / X64.abs().max()),
+            float(torch.linalg.norm(S64 @ X.double() - B64) / torch.linalg.norm(B64)))
+
+
 def k1_many_check(S, Bm, rel, what, f64=False):
     """K1 many vs its plain version on (S, Bm): one launch, finite, max |ΔX|
     ≤ K1_TOL, max |ΔX| / max |X| ≤ rel and ‖S·X − B‖_F / ‖B‖_F ≤ rel. With
     f64, also the kernel's and the plain version's max relative error and
-    residual against the float64 solve, the kernel's within K1_ILL_RATIO
+    residual against the float64 solve, as medians over
+    rounding_ensemble(S, K1_ILL_TRIALS), the kernel's within K1_ILL_RATIO
     times the plain version's. Returns (max |ΔX|, a line)."""
     import torch
 
@@ -789,13 +837,14 @@ def k1_many_check(S, Bm, rel, what, f64=False):
             f"{res:.2e} (tolerance {rel}), max|X| {float(ref.abs().max()):.3g}")
     ok = bool(torch.isfinite(X).all()) and err <= K1_TOL and rel_err <= rel and res <= rel
     if f64:
-        X64 = torch.cholesky_solve(B64, torch.linalg.cholesky(S64))
-        scale = float(X64.abs().max())
-        e_k, e_p = (float((Y.double() - X64).abs().max()) / scale for Y in (X, ref))
-        r_p = residual(ref)
-        line += (f"; against the float64 solve: kernel {e_k:.2e} relative, residual {res:.2e}; plain {e_p:.2e}, "
-                 f"{r_p:.2e} (the kernel's within {K1_ILL_RATIO}x the plain version's)")
-        ok = ok and e_k <= K1_ILL_RATIO * e_p and res <= K1_ILL_RATIO * r_p
+        gaps = [f64_gaps(S_t, Bm, X if t == 0 else cholesky.cholesky_solve(S_t, Bm))
+                + f64_gaps(S_t, Bm, ref if t == 0 else cholesky.cholesky_solve_plain(S_t, Bm))
+                for t, S_t in enumerate(rounding_ensemble(S, K1_ILL_TRIALS))]
+        e_k, r_k, e_p, r_p = np.median(np.array(gaps), axis=0)
+        line += (f"; against the float64 solve, medians over S and {K1_ILL_TRIALS - 1} copies at float32's rounding: "
+                 f"kernel {e_k:.2e} relative, residual {r_k:.2e}; plain {e_p:.2e}, {r_p:.2e} (the kernel's within "
+                 f"{K1_ILL_RATIO}x the plain version's; on S alone kernel {gaps[0][0]:.2e}, plain {gaps[0][2]:.2e})")
+        ok = ok and e_k <= K1_ILL_RATIO * e_p and r_k <= K1_ILL_RATIO * r_p
     if not ok:
         raise AssertionError(f"K1 many disagrees with its plain version at K={S.shape[0]}, N={Bm.shape[1]}: {line}")
     return err, line
@@ -2399,20 +2448,80 @@ def last_call(module, name, size):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def path_kernel_args():
+    """Keep, while a phase runs its path, the arguments at which it is then
+    held to each kernel's plain version: K1's at the last of its largest
+    reduced systems (the last global BA), K1 many's at the largest
+    point-covariance solve, K2's at the PCG with the most lanes (then CG
+    iterations; the global integrations' shape) and at the PCG with the
+    most CG iterations of all lanes together (a newly registered image's).
+    Reading the iteration counts adds a read to each PCG. Yields a dict of
+    last_call's dicts."""
+    from mpsfm_tpu_torch.ba import covariance, dense
+    from mpsfm_tpu_torch.integration import bini
+
+    def cg_iterations(a, out):
+        return int(out[1].sum())
+
+    with last_call(dense, "cholesky_solve", lambda a, out: a[0].shape[0]) as k1, \
+            last_call(covariance, "cholesky_solve", lambda a, out: a[1].numel()) as k1_many, \
+            last_call(bini, "_pcg", lambda a, out: (a[3].shape[0], cg_iterations(a, out))) as k2_wide, \
+            last_call(bini, "_pcg", cg_iterations) as k2_busy:
+        yield {"K1": k1, "K1 many": k1_many, "K2 widest": k2_wide, "K2 busiest": k2_busy}
+
+
+def check_path_kernels(phase, kept, rec, dev):
+    """Each kernel held to its plain version at a phase's own shapes (kept
+    by path_kernel_args; K3 at int_covs_bundle_batched's shapes of the final
+    map rec) and timed beside it. K1 takes K1_REL's less dominant class
+    (the last global BA's reduced system is as ill-conditioned; its
+    condition number printed), K1 many K1_ILL_REL and the float64 solve.
+    Returns {kernel: (ms, plain ms)}."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+    from mpsfm_tpu_torch.integration import bini_diag, bini_fused
+
+    S, b = kept["K1"]["args"]
+    kappa = float(torch.linalg.cond(S.double()))
+    _, _, line = k1_check(S, b, K1_REL[0.01], f"K1 at the {phase}'s last global BA (K={S.shape[0]}, "
+                          f"condition number {kappa:.3g})")
+    times = {"K1": (cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20),
+                    cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2))}
+    print(line)
+    S, Bm = kept["K1 many"]["args"]
+    kappa = float(torch.linalg.cond(S.double()))
+    _, line = k1_many_check(S, Bm, K1_ILL_REL, f"K1 many at the {phase}'s largest point-covariance solve "
+                            f"(K={S.shape[0]}, N={Bm.shape[1]}, condition number {kappa:.3g})", f64=True)
+    times["K1 many"] = (cuda_ms(lambda: cholesky.cholesky_solve(S, Bm), 10),
+                        cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 2))
+    print(line)
+    for name in ("K2 widest", "K2 busiest"):
+        st, b2, dg, z, iters, tol, active = kept[name]["args"]
+        k2 = (st, b2, dg, z, iters, tol)
+        B, H, W = z.shape
+        k2_pcg_check(f"{phase}, its {name[3:]} PCG: B={B} {H}x{W}", k2, active)
+        times[name] = (cuda_ms(lambda: bini_fused.pcg(*k2, active), 5),
+                       cuda_ms(lambda: bini_fused.pcg_plain(*k2, active), 1))
+    pris = [rec.images[i].priors for i in rec.reg_image_ids()]
+    k3 = scene_k3_args(rec, pris, dev)
+    k3_check(f"{phase}, int_covs of the final map", k3)
+    times["K3"] = (cuda_ms(lambda: bini_diag.deflated_pcg(*k3), 2), cuda_ms(lambda: bini_diag.deflated_pcg_plain(*k3), 1))
+    print(f"{phase} kernels at the phase's shapes, kernel / plain version (ms): "
+          + ", ".join(f"{k} {a:.4f} / {p:.3f}" for k, (a, p) in times.items()))
+    return times
+
+
 def mapping_phase(dev, counted):
     """MpsfmMapper on the card over the full mapping scene (MAPPING), with
     the launch counts set to 0 just before: every image registered, ATE,
     points, the uncertainty chain and each kernel launched; wall, launches,
-    each registration's wall and the phase timers printed. Then K1 on the
-    last global BA's reduced system, K1 many on the largest point-covariance
-    solve (S + 1e-8·I and its right-hand sides), K2 on the phase's PCG with the most
-    lanes (then CG iterations) and on its PCG with the most CG iterations,
-    and K3 at int_covs_bundle_batched's shapes of the final map, each held
-    to its plain version and timed. Returns (summary, launches)."""
+    each registration's wall and the phase timers printed. Then each kernel
+    held to its plain version at the phase's shapes and timed
+    (check_path_kernels). Returns (summary, launches)."""
     import torch
 
-    from mpsfm_tpu_torch.ba import covariance, dense
-    from mpsfm_tpu_torch.integration import bini
     from mpsfm_tpu_torch.utils.profiling import TIMERS
 
     dev = torch.device(dev)
@@ -2427,18 +2536,7 @@ def mapping_phase(dev, counted):
     TIMERS.reset()
     for k in counted.values():
         k.launches = 0
-    # K2 is held at two of the run's PCGs: the one with the most lanes (the global integrations' shape)
-    # and, among those, the most CG iterations; and the one with the most CG iterations of all lanes
-    # together. The global integrations start from nearly converged maps and stop after a few
-    # iterations; the busiest solves are those of a newly registered image. Reading the iteration
-    # counts adds a read to each PCG.
-    def cg_iterations(a, out):
-        return int(out[1].sum())
-
-    with last_call(dense, "cholesky_solve", lambda a, out: a[0].shape[0]) as k1_args, \
-            last_call(covariance, "cholesky_solve", lambda a, out: a[1].numel()) as k1_many_args, \
-            last_call(bini, "_pcg", lambda a, out: (a[3].shape[0], cg_iterations(a, out))) as k2_wide, \
-            last_call(bini, "_pcg", cg_iterations) as k2_busy:
+    with path_kernel_args() as kept:
         rec, ok, mapper, wall, walls = run_mapping(rec, corr, dev, num_hyp)
     launches = {name: k.launches for name, k in counted.items()}
     out = mapping_summary(rec, ok, mapper, truth, cfg["n_points"], MAPPING_FULL_BOUNDS)
@@ -2452,39 +2550,7 @@ def mapping_phase(dev, counted):
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched in the mapping phase")
-    # the last global BA's reduced system is as ill-conditioned as K1_REL's less dominant class (its
-    # condition number printed), so it takes that class's bound; the point covariances' system is
-    # held to K1_ILL_REL and the float64 solve
-    from mpsfm_tpu_torch.ba import cholesky
-    from mpsfm_tpu_torch.integration import bini_diag, bini_fused
-
-    S, b = k1_args["args"]
-    kappa = float(torch.linalg.cond(S.double()))
-    _, _, line = k1_check(S, b, K1_REL[0.01], f"K1 at the mapping phase's last global BA (K={S.shape[0]}, "
-                          f"condition number {kappa:.3g})")
-    times = {"K1": (cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20),
-                    cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2))}
-    print(line)
-    S, Bm = k1_many_args["args"]
-    kappa = float(torch.linalg.cond(S.double()))
-    _, line = k1_many_check(S, Bm, K1_ILL_REL, f"K1 many at the mapping phase's largest point-covariance solve "
-                            f"(K={S.shape[0]}, N={Bm.shape[1]}, condition number {kappa:.3g})", f64=True)
-    times["K1 many"] = (cuda_ms(lambda: cholesky.cholesky_solve(S, Bm), 10),
-                        cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 2))
-    print(line)
-    for name, kept in (("K2 widest", k2_wide), ("K2 busiest", k2_busy)):
-        st, b2, dg, z, iters, tol, active = kept["args"]
-        k2 = (st, b2, dg, z, iters, tol)
-        B, H, W = z.shape
-        k2_pcg_check(f"mapping phase, its {name[3:]} PCG: B={B} {H}x{W}", k2, active)
-        times[name] = (cuda_ms(lambda: bini_fused.pcg(*k2, active), 5),
-                       cuda_ms(lambda: bini_fused.pcg_plain(*k2, active), 1))
-    pris = [rec.images[i].priors for i in rec.reg_image_ids()]
-    k3 = scene_k3_args(rec, pris, dev)
-    k3_check("mapping phase, int_covs of the final map", k3)
-    times["K3"] = (cuda_ms(lambda: bini_diag.deflated_pcg(*k3), 2), cuda_ms(lambda: bini_diag.deflated_pcg_plain(*k3), 1))
-    print("mapping phase kernels at the phase's shapes, kernel / plain version (ms): "
-          + ", ".join(f"{k} {a:.4f} / {p:.3f}" for k, (a, p) in times.items()))
+    check_path_kernels("mapping phase", kept, rec, dev)
     return out, launches
 
 
@@ -2515,6 +2581,372 @@ def mapping_card_vs_cpu(dev):
     if g["order"] != c["order"] or not gap <= MAPPING_POINTS_REL:
         raise AssertionError(line)
     return runs
+
+
+# ---- the pipeline phase (slice 7): reconstruct from an RGB-D directory ----
+
+# configs/classical-nn_measured.yaml as a dict (tests/test_torch_pipeline.py holds it equal to the port's
+# load_cfg of the file); the phase runs it on one card (dist_ba off) with its stores in the directory
+# format, as the card's host has no h5py
+MAIN_CONF = {"matches_mode": "sparse+measured",
+             "extractors": {"features": "classical", "matcher": "nn", "pairs_type": "exhaustive"},
+             "mapper": {"ba": {"max_iters": 20}}}
+PIPELINE_CONF = {**MAIN_CONF, "cache_format": "npy", "mapper": {"ba": {"max_iters": 20, "dist_ba": "off"}}}
+# the conf of tests/test_pipeline_e2e.py (its _PIPE_CONF), for the small scene
+E2E_CONF = {"matches_mode": "sparse+measured", "cache_format": "npy",
+            "extractors": {"features": "classical", "matcher": "nn", "pairs_type": "exhaustive",
+                           "feature_conf": {"max_keypoints": 1024}, "resize_max": 0},
+            "mapper": {"int_covs": False, "ba": {"max_iters": 10, "dist_ba": "off"}, "registration": {"num_hyp": 256}},
+            "image_priors": {"cg_max_iter": 150, "max_iter": 3,
+                             "depth": {"prior_uncertainty": True, "depth_uncertainty": None,
+                                       "prior_std_multiplier": 1.0}}}
+# the rendered scenes: the mapping phase's geometry (640×480, focal 520, baseline 0.18, the wedge) cut
+# from its 12 images to 8 (with 12 the whole script ran 339 s, past the ~300 s it should stay under),
+# and tests/test_pipeline_e2e.py's (5 images of 320×240, focal 260, baseline 0.3, one plane); sensor
+# depth with 1% log-normal noise (its depth_noise)
+PIPELINE = dict(seed=SEED + 11, n_images=8, img_wh=(640, 480), focal=520.0, baseline=0.18, wedge=True)
+PIPELINE_SMALL = dict(seed=SEED + 12, n_images=5, img_wh=(320, 240), focal=260.0, baseline=0.3, wedge=False)
+RENDER_DEPTH_NOISE = 0.01
+# texture: octave weights of a multi-octave noise (tests/synthetic.render_scene_dir's), its resolution and
+# the world span it covers on each plane
+TEXTURE_OCTAVES, TEXTURE_RES, PLANE_EXTENT = (1.0, 0.7, 0.5, 0.35, 0.25), 1024, 8.0
+# the bounds: ATE of the mapping phase's small scene (for the small scene here); card vs CPU, the share
+# of the card's keypoints the CPU finds within KP_MATCH_PX, their descriptors within DESC_TOL (the
+# CPU tests' bound against the JAX package), every match equal, the point counts within MAPPING_POINTS_REL
+PIPELINE_ATE, KP_MATCH_PX, KP_COMMON, DESC_TOL = MAPPING_ATE, 1e-2, 0.99, 1e-4
+# the full scene's bounds (registered images, ATE, points), set from its sound runs on the card (8/8,
+# ATE 0.002752, 4682 points; the JAX package on the CPU over the same render: 8/8, 0.005206, 4683): a map
+# several times worse fails (the first bounds were >= 11 of 12 images and ATE < 0.05)
+PIPELINE_FULL_BOUNDS = (8, 0.02, 4200)
+
+
+def png_gray(img):
+    """PNG bytes of a (H, W) uint8 image: 8-bit grayscale, every row with
+    the Paeth filter (the one encoders pick most on smooth images, and the
+    dearest to undo), one zlib stream."""
+    import struct
+    import zlib
+
+    h, w = img.shape
+    x = np.pad(img.astype(np.int16), ((1, 0), (1, 0)))
+    a, b, c, x = x[1:, :-1], x[:-1, 1:], x[:-1, :-1], x[1:, 1:]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), ((x - pred) & 0xFF).astype(np.uint8)], 1).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+
+
+def _upsample(layer, n):
+    """Bilinear upsampling of a square layer to n×n (corners aligned)."""
+    m = layer.shape[0]
+    x, grid = np.linspace(0, m - 1, n), np.arange(m)
+    rows = np.stack([np.interp(x, grid, r) for r in layer])
+    return np.stack([np.interp(x, grid, c) for c in rows.T], 1)
+
+
+def noise_texture(rng, res=TEXTURE_RES):
+    """A multi-octave noise in [0, 1]: uniform layers of 64 .. 1024 texels
+    a side, bilinearly upsampled, weighted, summed, then a [1, 2, 1]/4 blur
+    a side."""
+    tex = np.zeros((res, res))
+    for octv, wgt in enumerate(TEXTURE_OCTAVES):
+        m = max(8, res >> (len(TEXTURE_OCTAVES) - 1 - octv))
+        tex += wgt * _upsample(rng.uniform(-1, 1, (m, m)), res)
+    for axis in (0, 1):
+        pad = np.pad(tex, [(1, 1) if a == axis else (0, 0) for a in (0, 1)], mode="reflect")
+        lo, mid, hi = (np.take(pad, range(k, k + res), axis=axis) for k in range(3))
+        tex = 0.25 * lo + 0.5 * mid + 0.25 * hi
+    return (tex - tex.min()) / (tex.max() - tex.min())
+
+
+def _lookup(tex, su, tv):
+    """Bilinear lookup of tex at texel coordinates (su along x, tv along y),
+    clamped to the texture."""
+    n = tex.shape[0]
+    su, tv = np.clip(su, 0, n - 1.001), np.clip(tv, 0, n - 1.001)
+    x0, y0 = su.astype(np.int64), tv.astype(np.int64)
+    fx, fy = su - x0, tv - y0
+    return ((tex[y0, x0] * (1 - fx) + tex[y0, x0 + 1] * fx) * (1 - fy)
+            + (tex[y0 + 1, x0] * (1 - fx) + tex[y0 + 1, x0 + 1] * fx) * fy)
+
+
+def render_view(scene, pose, textures):
+    """(H, W) gray image in [0, 1] of a MappingScene from `pose`: each pixel
+    takes the texture of the nearest plane along its ray, at the world
+    point's coordinates in that plane's frame."""
+    u, v = scene._rays()
+    r = np.einsum("ij,hwj->hwi", pose.rotation_matrix().T, np.stack([u, v, np.ones_like(u)], -1))
+    c = pose.center()
+    depth = scene.plane_depth(pose)
+    img = np.zeros(depth.shape)
+    best = np.full(depth.shape, np.inf)
+    for (n, d0), tex in zip(scene.planes, textures):
+        denom = np.einsum("i,hwi->hw", n, r)
+        s = (n[2] * d0 - n @ c) / np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+        s = np.where(s > 0.05, s, np.inf)
+        e1 = np.cross(n, [0, 0, 1.0])
+        e1 = e1 / np.linalg.norm(e1) if np.linalg.norm(e1) > 1e-6 else np.array([1.0, 0, 0])
+        e2 = np.cross(n, e1)
+        rel = c + np.where(np.isfinite(s), s, 0)[..., None] * r - np.array([0, 0, d0])
+        su = (rel @ e1 / PLANE_EXTENT + 0.5) * (TEXTURE_RES - 1)
+        tv = (rel @ e2 / PLANE_EXTENT + 0.5) * (TEXTURE_RES - 1)
+        near = s < best
+        img = np.where(near, _lookup(tex, su, tv), img)
+        best = np.minimum(best, s)
+    return img
+
+
+def render_rgbd_dir(out_dir, seed, n_images, img_wh, focal, baseline, wedge):
+    """Render a MappingScene (no points) as an RGB-D directory the pipeline
+    reads: images/imNN.png (8-bit gray, png_gray), depth/imNN.npy (the
+    surface's depth with RENDER_DEPTH_NOISE log-normal noise) and
+    intrinsics.yaml in its JSON form; and the true poses as a COLMAP text
+    model in truth/ (for either package's --refrec_dir: python reconstruct.py
+    --conf <conf> --data_dir <dir> --refrec_dir <dir>/truth prints the ATE).
+    Returns the scene."""
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.scene.reconstruction import HostCamera, ImageRecord, Reconstruction
+    from mpsfm_tpu_torch.utils.colmap_io import write_text
+
+    rng = np.random.default_rng(seed)
+    scene = MappingScene(rng=rng, n_images=n_images, n_points=0, img_wh=img_wh, focal=focal, baseline=baseline,
+                         wedge=wedge)
+    out = Path(out_dir)
+    (out / "images").mkdir(parents=True, exist_ok=True)
+    (out / "depth").mkdir(parents=True, exist_ok=True)
+    textures = [noise_texture(rng) for _ in scene.planes]
+    for i, pose in enumerate(scene.poses):
+        img = render_view(scene, pose, textures)
+        (out / "images" / f"im{i:02d}.png").write_bytes(png_gray((img * 255).astype(np.uint8)))
+        d = scene.plane_depth(pose)
+        np.save(out / "depth" / f"im{i:02d}.npy", d * np.exp(rng.normal(scale=RENDER_DEPTH_NOISE, size=d.shape)))
+    params = [focal, focal, img_wh[0] / 2, img_wh[1] / 2]
+    (out / "intrinsics.yaml").write_text(json.dumps({"1": {"params": params, "images": "all"}}))
+    truth = Reconstruction()
+    truth.add_camera(HostCamera(1, np.asarray(params), *img_wh))
+    for i, pose in enumerate(scene.poses):  # one keypoint each: COLMAP text readers skip empty lines
+        truth.add_image(ImageRecord(i, f"im{i:02d}.png", 1, keypoints=np.array([params[2:]]),
+                                    point3D_ids=np.array([-1]), pose=pose.copy(), registered=True))
+    write_text(truth, out / "truth")
+    return scene
+
+
+@contextlib.contextmanager
+def devices_seen():
+    """Record the device of each pipeline stage's work as it runs: the
+    detector's images, the matcher's descriptors, the verification's device
+    and the mapper's. Yields a dict stage -> set of device types."""
+    import torch
+
+    from mpsfm_tpu_torch import pipeline
+    from mpsfm_tpu_torch.extraction.features import classical
+    from mpsfm_tpu_torch.extraction.matchers import nn
+    from mpsfm_tpu_torch.scene import correspondences
+
+    seen = {k: set() for k in ("features", "matches", "populate", "mapper")}
+    orig = (classical.detect_describe, nn.match, correspondences.estimate_two_view_geometry_batch,
+            pipeline.MpsfmMapper)
+
+    def detect(imgs, *a, **k):
+        seen["features"].add(imgs.device.type)
+        return orig[0](imgs, *a, **k)
+
+    def match(d0, d1, *a, **k):
+        seen["matches"].add(d0.device.type)
+        return orig[1](d0, d1, *a, **k)
+
+    def verify(pairs, *a, device, **k):
+        seen["populate"].add(torch.device(device).type)
+        return orig[2](pairs, *a, device=device, **k)
+
+    def mapper(*a, **k):
+        m = orig[3](*a, **k)
+        seen["mapper"] |= {m.optimizer.device.type, m.registration.device.type, m.dc.device.type}
+        return m
+
+    classical.detect_describe, nn.match, correspondences.estimate_two_view_geometry_batch = detect, match, verify
+    pipeline.MpsfmMapper = mapper
+    try:
+        yield seen
+    finally:
+        (classical.detect_describe, nn.match, correspondences.estimate_two_view_geometry_batch,
+         pipeline.MpsfmMapper) = orig
+
+
+def run_pipeline(data_dir, conf, dev, cache_dir=None):
+    """The port's reconstruct over an RGB-D directory on `dev`, outputs in
+    data_dir/sfm_outputs. Returns (rec, ok, wall seconds)."""
+    import torch
+
+    from mpsfm_tpu_torch.pipeline import reconstruct
+
+    dev = torch.device(dev)
+    t = time.perf_counter()
+    rec, ok = reconstruct(data_dir, conf=conf, cache_dir=cache_dir, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return rec, ok, time.perf_counter() - t
+
+
+def check_written_model(rec, out_dir):
+    """The text model in out_dir, read back by the port's read_text, holds
+    rec's registered images (names), poses within 1e-6 and point count."""
+    from mpsfm_tpu_torch.utils.colmap_io import read_text
+
+    back = read_text(out_dir)
+    names = {im.name: im for im in rec.registered_images.values()}
+    got = {im.name: im for im in back.registered_images.values()}
+    gap = max(max(np.abs(im.pose.q - got[n].pose.q).max(), np.abs(im.pose.t - got[n].pose.t).max())
+              for n, im in names.items()) if names.keys() == got.keys() else float("inf")
+    if names.keys() != got.keys() or gap > 1e-6 or back.num_points3D() != rec.num_points3D():
+        raise AssertionError(f"written model: images {sorted(got)} vs {sorted(names)}, pose gap {gap}, points "
+                             f"{back.num_points3D()} vs {rec.num_points3D()}")
+    return gap
+
+
+def pipeline_phase(dev, counted):
+    """The port's reconstruct on the card over a rendered RGB-D directory
+    (PIPELINE: the mapping phase's geometry, 8 PNG images of 640×480, .npy
+    depth, JSON intrinsics) under the main path's conf: a warm-up run on a
+    copy of the directory, then the measured run with the launch counts
+    set to 0 just before. Holds: features, matches, populate and the mapper
+    on the card, each kernel launched, PIPELINE_FULL_BOUNDS (registered
+    images, ATE, points), the written text model equal to the map, and
+    each kernel to its plain version at the run's own shapes
+    (check_path_kernels). Prints the host's PNG decode time, each pipe.*
+    phase's wall, registered images, points, ATE, launches and frames/s.
+    Returns (summary, launches)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.utils.io import read_image
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    cfg = dict(PIPELINE)
+    min_reg, ate_bound, min_points = PIPELINE_FULL_BOUNDS
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        scene = render_rgbd_dir(Path(tmp) / "scene", **cfg)
+        render_s = time.perf_counter() - t
+        t = time.perf_counter()  # the host's PNG decode, as _load_gray reads each image once a run
+        for path in sorted((Path(tmp) / "scene" / "images").iterdir()):
+            read_image(path, grayscale=True)
+        decode_s = (time.perf_counter() - t) / cfg["n_images"]
+        shutil.copytree(Path(tmp) / "scene", Path(tmp) / "warm")
+        _, _, warm_s = run_pipeline(Path(tmp) / "warm", PIPELINE_CONF, dev)
+        TIMERS.reset()
+        for k in counted.values():
+            k.launches = 0
+        with devices_seen() as seen, path_kernel_args() as kept:
+            rec, ok, wall = run_pipeline(Path(tmp) / "scene", PIPELINE_CONF, dev)
+        launches = {name: k.launches for name, k in counted.items()}
+        pipe = {k: round(v, 4) for k, v in TIMERS.totals.items() if k.startswith("pipe.")}
+        ate = ate_rmse(rec, scene.poses) if rec.num_reg_images() >= 3 else float("inf")
+        gap = check_written_model(rec, Path(tmp) / "scene" / "sfm_outputs")
+    out = dict(ok=bool(ok), registered=rec.num_reg_images(), images=rec.num_images(), points=rec.num_points3D(),
+               ate=ate, wall=wall, frames_per_s=rec.num_images() / wall, pipe=pipe, devices=seen)
+    print(f"pipeline scene: {cfg['n_images']} PNG images {cfg['img_wh'][0]}x{cfg['img_wh'][1]} (focal {cfg['focal']}, "
+          f"baseline {cfg['baseline']}, wedge; Paeth-filtered rows), .npy depth, JSON intrinsics; rendered in "
+          f"{render_s:.3f} s; PNG decode on the host {decode_s * 1e3:.3f} ms an image; warm-up run {warm_s:.3f} s wall")
+    print(f"pipeline: {wall:.3f} s wall, {out['frames_per_s']:.4f} frames/s; registered {out['registered']}/"
+          f"{out['images']} (bound {min_reg}); {out['points']} points (bound {min_points}); ATE {ate:.6f} (bound "
+          f"{ate_bound}); written model read back, pose gap {gap:.2e}; devices {json.dumps({k: sorted(v) for k, v in seen.items()})}; "
+          f"launches {json.dumps(launches)}")
+    print(f"pipeline pipe.* phases (s wall): {json.dumps(pipe)}")
+    print("pipeline phase timers (s wall x calls):\n" + TIMERS.summary())
+    if any(v != {"cuda"} for v in seen.values()):
+        raise AssertionError(f"pipeline stages off the card: {seen}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched in the pipeline phase")
+    if not (ok and out["registered"] >= min_reg and ate < ate_bound and out["points"] >= min_points):
+        raise AssertionError(f"pipeline: {out} (bounds: >= {min_reg} registered, ATE < {ate_bound}, >= {min_points} "
+                             "points)")
+    out["kernel_ms"] = check_path_kernels("pipeline phase", kept, rec, dev)
+    out["decode_s"] = decode_s
+    return out, launches
+
+
+def nearest_share(ka, kb, tol):
+    """Share of ka's keypoints with one of kb's within tol px, and the
+    largest such offset."""
+    import torch
+
+    d = torch.cdist(torch.as_tensor(ka, dtype=torch.float64), torch.as_tensor(kb, dtype=torch.float64))
+    dmin, arg = d.min(1)
+    common = dmin <= tol
+    return float(common.double().mean()), float(dmin[common].max()) if common.any() else float("inf"), \
+        common.numpy(), arg.numpy()
+
+
+def pipeline_card_vs_cpu(dev):
+    """The small scene (PIPELINE_SMALL, E2E_CONF) on the card, then: the
+    detector on the card and on the CPU over its images (keypoints as sets:
+    the share the CPU finds within KP_MATCH_PX, the largest offset, the
+    descriptors of common keypoints within DESC_TOL), the matcher on both
+    over the card's descriptors (every match equal), and the mapping on the CPU from the card's
+    caches (features, matches, pairs, verification): the same registered
+    images and points within MAPPING_POINTS_REL. Returns both summaries."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from mpsfm_tpu_torch.extraction.features.classical import ClassicalFeatures
+    from mpsfm_tpu_torch.extraction.matchers.nn import MutualNNMatcher
+    from mpsfm_tpu_torch.utils.io import read_image
+
+    cfg = dict(PIPELINE_SMALL)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = render_rgbd_dir(Path(tmp) / "scene", **cfg)
+        runs = {}
+        rec, ok, wall = run_pipeline(Path(tmp) / "scene", E2E_CONF, dev)
+        runs["cuda"] = (rec, ok, wall)
+        images = [read_image(p, True).astype(np.float32) / 255 for p in sorted((Path(tmp) / "scene/images").iterdir())]
+        conf = E2E_CONF["extractors"]["feature_conf"]
+        card = ClassicalFeatures(conf, device=dev).batch(images)
+        cpu = ClassicalFeatures(conf, device="cpu").batch(images)
+        shares, offsets, desc_gap = [], [], 0.0
+        for g, c in zip(card, cpu):
+            share, off, common, arg = nearest_share(g["keypoints"], c["keypoints"], KP_MATCH_PX)
+            shares.append(share)
+            offsets.append(off)
+            desc_gap = max(desc_gap, float(np.abs(g["descriptors"][common] - c["descriptors"][arg[common]]).max()))
+        m_same, m_total = 0, 0
+        for a in range(len(card)):
+            for b in range(a + 1, len(card)):
+                mg = MutualNNMatcher(device=dev)(card[a]["descriptors"], card[b]["descriptors"])["matches0"]
+                mc = MutualNNMatcher(device="cpu")(card[a]["descriptors"], card[b]["descriptors"])["matches0"]
+                m_same += int((mg == mc).sum())
+                m_total += len(mg)
+        shutil.copytree(Path(tmp) / "scene" / "cache", Path(tmp) / "cache_cpu")
+        runs["cpu"] = run_pipeline(Path(tmp) / "scene", E2E_CONF, "cpu", cache_dir=Path(tmp) / "cache_cpu")
+    summ = {}
+    for d, (rec, ok, wall) in runs.items():
+        summ[d] = dict(ok=ok, registered=sorted(rec.reg_image_ids()), points=rec.num_points3D(),
+                       ate=ate_rmse(rec, scene.poses) if rec.num_reg_images() >= 3 else float("inf"), wall=wall)
+    g, c = summ["cuda"], summ["cpu"]
+    gap = abs(g["points"] - c["points"]) / max(c["points"], 1)
+    line = (f"pipeline, small scene ({cfg['n_images']} x {cfg['img_wh'][0]}x{cfg['img_wh'][1]}), card vs CPU: keypoints "
+            f"in common (within {KP_MATCH_PX} px) {min(shares):.4f} .. {max(shares):.4f} (bound {KP_COMMON}), largest "
+            f"offset {max(offsets):.2e} px, descriptors of common keypoints within {desc_gap:.2e} (bound {DESC_TOL}); matches equal "
+            f"{m_same}/{m_total}; mapping from the card's caches: registered {g['registered']} / {c['registered']}, "
+            f"points {g['points']} / {c['points']} (gap {gap:.4f}, bound {MAPPING_POINTS_REL}), ATE {g['ate']:.5f} / "
+            f"{c['ate']:.5f} (bound {PIPELINE_ATE}), wall {g['wall']:.3f} / {c['wall']:.3f} s")
+    print(line)
+    if (min(shares) < KP_COMMON or not desc_gap <= DESC_TOL or m_same != m_total or g["registered"] != c["registered"]
+            or not gap <= MAPPING_POINTS_REL or not max(g["ate"], c["ate"]) < PIPELINE_ATE
+            or len(g["registered"]) < cfg["n_images"] - 1):
+        raise AssertionError(line)
+    return summ
 
 
 def profile_slice(inputs, dev, top=12):
@@ -2618,6 +3050,8 @@ def main():
     scene_refinement_card_vs_cpu(dev)
     _, mapping_launches = mapping_phase(dev, counted)
     mapping_card_vs_cpu(dev)
+    _, pipeline_launches = pipeline_phase(dev, counted)
+    pipeline_card_vs_cpu(dev)
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 
@@ -2644,6 +3078,7 @@ def main():
               f"bound {bound:.5f} ms), {n} launches on the main path")
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
+    print(f"pipeline launches: {json.dumps(pipeline_launches)}")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

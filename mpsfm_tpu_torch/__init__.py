@@ -9,7 +9,9 @@ depth rows, dense LM-Schur bundle adjustment — driven from the scene
 (the Reconstruction, per-image priors, the BA problem and the Optimizer's
 dense path), the geometry and robust estimators, and the mapper's
 control loop over them (MpsfmMapper: registration, triangulation,
-next-view selection, the depth-consistency checker), which maps a scene.
+next-view selection, the depth-consistency checker), which maps a scene;
+and the main path from images (pipeline.reconstruct, cli), which maps an
+RGB-D directory.
 
 Layout (each module mirrors its counterpart in mpsfm_tpu/):
   geometry/rotations.py     quaternion / SE(3) math
@@ -46,6 +48,13 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   scene/priors.py           Depth and Normals priors (host numpy)
   scene/image_priors.py     ImagePriors and the bundle-level functions of the
                             integration and the int_covs chain
+  datasets/simple.py        SimpleParser: images/, depth/, intrinsics.yaml
+  extraction/               pairs, classical features, mutual-NN matches,
+                            measured priors, the Extraction facade
+  utils/io.py, colmap_io.py PNG decoder, HDF5 / directory artifact stores,
+                            COLMAP text and binary models
+  pipeline.py, cli.py, eval.py
+                            reconstruct from a directory, its command line, ATE
   kernels.py                nvcc build + ctypes loader for csrc/*.cu
   convert.py                JAX-package state (numpy) -> port tensors:
                             BA data, BiNI inputs, cameras, poses, DC

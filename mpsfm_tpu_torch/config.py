@@ -6,13 +6,14 @@ mpsfm/utils/tools.py:24-72): every pipeline object declares a
 ``default_conf``; user configs are deep-merged over defaults; YAML files
 may declare ``defaults:`` lists that are loaded recursively, including the
 ``name@target`` remapping form that grafts a file under a sub-key.
-PyYAML is imported by ``load_cfg`` only, so the objects built on
-``BaseClass`` need no YAML parser.
+PyYAML is imported by ``load_cfg`` only, and only for a file whose text
+is not JSON, so the objects built on ``BaseClass`` need no YAML parser.
 """
 
 from __future__ import annotations
 
 import copy
+import json
 from pathlib import Path
 from typing import Any
 
@@ -74,8 +75,6 @@ def load_cfg(path: str | Path, _seen: set | None = None) -> Config:
     matching the reference's loader (mpsfm/utils/tools.py:24-72).
     Later entries and the file's own body override earlier ones.
     """
-    import yaml
-
     path = Path(path)
     if path.suffix == "":
         path = path.with_suffix(".yaml")
@@ -84,8 +83,13 @@ def load_cfg(path: str | Path, _seen: set | None = None) -> Config:
         raise ValueError(f"Circular config defaults involving {path}")
     _seen = _seen | {path}
 
-    with open(path) as f:
-        raw = yaml.safe_load(f) or {}
+    text = path.read_text()
+    try:  # JSON is YAML's flow subset: a JSON config needs no PyYAML
+        raw = json.loads(text) or {}
+    except json.JSONDecodeError:
+        import yaml
+
+        raw = yaml.safe_load(text) or {}
 
     base = Config.create({})
     for entry in raw.pop("defaults", []) or []:

@@ -44,7 +44,7 @@ class Correspondences(BaseClass):
                  cache_path=None):
         """keypoints: name -> (N,2) px; matches: (name0,name1) -> (M,2);
         scores: frozenset(names) -> (M,) match confidences (optional).
-        cache_path: optional HDF5 file caching verified two-view
+        cache_path: optional store (.h5 or .npyd) caching verified two-view
         geometries keyed by pair + a digest of matches/keypoints/RANSAC
         params (parity with COLMAP's two_view_geometries database table —
         verification results are a pure function of those inputs)."""
@@ -139,19 +139,21 @@ class Correspondences(BaseClass):
 
 
 class _TvgCache:
-    """HDF5 cache of TwoViewGeometry results keyed by pair name, a digest
+    """Cache of TwoViewGeometry results keyed by pair name, a digest
     of the verification inputs (match array + matched keypoint coords) and
     the verification parameters. Mirrors COLMAP's two_view_geometries
     table: recomputation is skipped only when matches, keypoints and
     RANSAC settings are all unchanged (COLMAP invalidates the table when
     the matches table changes). The layout and digest are the JAX
-    package's, so a cache written by one package reads in the other."""
+    package's, so a cache written by one package reads in the other. The
+    store is an HDF5 file or a directory store, by the path's suffix
+    (utils.io.open_store)."""
 
     def __init__(self, path):
-        import h5py
+        from mpsfm_tpu_torch.utils.io import open_store
 
         self.path = path
-        self._f = h5py.File(path, "a")
+        self._f = open_store(path, "a")
 
     @staticmethod
     def _key(name0, name1):
