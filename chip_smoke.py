@@ -155,6 +155,30 @@
    matcher's matches, and the mapping on the CPU from the card's caches
    (the same registered images, points within 5%, ATEs below 0.05).
 
+11. The sparse BA solver (slice 8): solve_ba on the bench bundle with its
+   per-(point, camera) tables (the dense-Schur route, K1 once an LM
+   iteration), 20 LM iterations against solve_ba_dense (t within 5e-3,
+   xyz within 2e-2, costs within 5%), K1 held to its plain version on the
+   last reduced system; then the large route: a Reconstruction of the
+   JAX package's 500+ image BA bench (512 images × 131 072 points seen by
+   6 consecutive cameras of a sweep, 0.5 px noise, poses perturbed) with
+   ImagePriors on 8 images at 290×387, through run_scene_refinement once
+   to warm up and once on a fresh scene with the launch counts at 0:
+   point covariances at K = 3072 (K1 many), the global step whose
+   ba_fused falls back to solve_ba on the block-sparse Schur tables, the
+   local step (dense, K1), refine_3d_points. Held: covariances finite,
+   symmetric, positive definite; each BA's cost below its start; the
+   global BA on the block-sparse tables; poses and points closer to the
+   truth; every kernel launched, and held to its plain version at the
+   route's shapes (K1 many on its first 24 576 columns, timed on all);
+   printed: each entry point's wall, build_ba_data's host time with
+   make_block_schur_tables apart, the peak device memory, launches, K1
+   many's three kernels at K = 3072, and solve_ba's LM iterations/s and
+   CG iterations per LM step on the global BA's problem. Last,
+   test_block_schur_full_solve_parity's bundle (16 × 1024) solved with the
+   block-sparse tables on the card and on the CPU and matrix-free on the
+   card: final costs within 2% + 1e-3.
+
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
 
@@ -164,7 +188,7 @@ scores), the consistent scene's two scores, the estimators' times and
 checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
 own), the mapping phase's lines and launches, the pipeline phase's lines
-and launches, a `{"kernels": [...]}` line, and last
+and launches, the sparse BA phase's lines and launches, a `{"kernels": [...]}` line, and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -236,7 +260,10 @@ K1_REL = {1.0: 1e-5, 0.01: 1e-4}
 # K1_ILL_TRIALS - 1 copies of it perturbed at float32's rounding (rounding_ensemble). On one system
 # the kernel's distance over the plain version's swings from 0.05 to 36 between such copies, and
 # cuSOLVER's float32 solve is past 2x the plain version's on a quarter of them
-# (k1_many_ill_probe.py), so one draw says nothing of the kernel; their medians do.
+# (k1_many_ill_probe.py), so one draw says nothing of the kernel; their medians do. Where the plain
+# version itself is farther than K1_ILL_REL / K1_ILL_RATIO from the float64 solve on S (the covariances
+# of a 128-camera sweep, 2.6e-2 on this sandbox's CPU), two float32 orders differ by as much, so kernel
+# and plain are held within K1_ILL_RATIO times that distance instead (a missed tile is still off by O(1)).
 K1_ILL_REL, K1_ILL_RATIO, K1_ILL_TRIALS = 1e-2, 2.0, 32
 # max |Δz| in log-depth of K2 vs its plain version. Sound runs differ only in
 # the order of the dot products' sums (1.6e-6 at the PCG's tolerance, 1.7e-5
@@ -244,6 +271,14 @@ K1_ILL_REL, K1_ILL_RATIO, K1_ILL_TRIALS = 1e-2, 2.0, 32
 # kernel whose CTA reads a stale or dropped halo at its seams fails it
 # (fixed budget 1.7e-2 and 4.9e-3).
 K2_TOL = 1e-4
+# The integrations of the sparse BA's sweep (anchors priced by its covariances) are ill-conditioned:
+# run for the same iterations, the float32 PCG drifts from a float64 run of it by 1e-6 over the first
+# 20 iterations and by 0.15 after 317, the kernel and the plain version alike (H100), so two float32
+# orders end 1.8e-2 apart. There K2 is held within K2_TOL of the plain version over K2_SHORT
+# iterations, and over the whole budget no farther from the float64 run than K2_RATIO times the plain
+# version is. On that PCG's inputs a stale or dropped halo at one CTA's seams (k2_seam_fault) is off by
+# 0.13 and 8.3e-3 after 20 iterations (CPU).
+K2_SHORT, K2_RATIO = 20, 2.0
 # max |Δv| / v of K3's variances vs its plain version. Sound runs differ only in
 # the order of the dot products' sums (4.7e-6 on an H100); k3_phase shows that a
 # kernel that skips the deflation's projection (keeping the coarse start), or
@@ -815,7 +850,9 @@ def k1_many_check(S, Bm, rel, what, f64=False):
     f64, also the kernel's and the plain version's max relative error and
     residual against the float64 solve, as medians over
     rounding_ensemble(S, K1_ILL_TRIALS), the kernel's within K1_ILL_RATIO
-    times the plain version's. Returns (max |ΔX|, a line)."""
+    times the plain version's, and max |ΔX| / max |X| within the larger of
+    rel and K1_ILL_RATIO times the plain version's relative distance from
+    the float64 solve on S. Returns (max |ΔX|, a line)."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
@@ -833,13 +870,17 @@ def k1_many_check(S, Bm, rel, what, f64=False):
         return float(torch.linalg.norm(S64 @ Y.double() - B64) / torch.linalg.norm(B64))
 
     res = residual(X)
-    line = (f"{what}: max|kernel - plain| {err:.3e} (tolerance {K1_TOL}), relative {rel_err:.2e}, residual "
-            f"{res:.2e} (tolerance {rel}), max|X| {float(ref.abs().max()):.3g}")
-    ok = bool(torch.isfinite(X).all()) and err <= K1_TOL and rel_err <= rel and res <= rel
     if f64:
         gaps = [f64_gaps(S_t, Bm, X if t == 0 else cholesky.cholesky_solve(S_t, Bm))
                 + f64_gaps(S_t, Bm, ref if t == 0 else cholesky.cholesky_solve_plain(S_t, Bm))
                 for t, S_t in enumerate(rounding_ensemble(S, K1_ILL_TRIALS))]
+        rel_bound = max(rel, K1_ILL_RATIO * gaps[0][2])  # K1_ILL_REL's note
+    else:
+        rel_bound = rel
+    line = (f"{what}: max|kernel - plain| {err:.3e} (tolerance {K1_TOL}), relative {rel_err:.2e} (tolerance "
+            f"{rel_bound:.3g}), residual {res:.2e} (tolerance {rel}), max|X| {float(ref.abs().max()):.3g}")
+    ok = bool(torch.isfinite(X).all()) and err <= K1_TOL and rel_err <= rel_bound and res <= rel
+    if f64:
         e_k, r_k, e_p, r_p = np.median(np.array(gaps), axis=0)
         line += (f"; against the float64 solve, medians over S and {K1_ILL_TRIALS - 1} copies at float32's rounding: "
                  f"kernel {e_k:.2e} relative, residual {r_k:.2e}; plain {e_p:.2e}, {r_p:.2e} (the kernel's within "
@@ -902,7 +943,42 @@ def k1_many_phase(dev, rng):
                   + f"; substitution bound {subst_bound:.5f} ms (2 K^2 N FLOP), library's substitution "
                   f"(torch.cholesky_solve, factor given) {lib_subst:.4f} ms")
         print(line)
+    out["k3072"] = k1_many_covariance_shape(dev, rng)
     return out
+
+
+def k1_many_covariance_shape(dev, rng, K=6 * 512, N=3 * 131072):
+    """K1 many at the point covariances' shape of the sparse BA phase's
+    full width (512 cameras × 131 072 points), on S = A·Aᵀ + K·I: held to
+    its plain version on the first SPARSE_COV_COLS right-hand sides (its
+    K1_REL[1.0] class), timed on all N beside the plain version, the
+    library call, its three kernels apart and its bound. Returns the
+    numbers."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    A = rng.normal(size=(K, K)).astype(np.float32)
+    S = torch.as_tensor(A @ A.T + K * np.eye(K, dtype=np.float32), device=dev)
+    Bm = torch.randn(K, N, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    err, line = k1_many_check(S, Bm[:, :SPARSE_COV_COLS].contiguous(), K1_REL[1.0],
+                              f"K1 cholesky_solve K={K}, N={N} (the 512-camera covariances' shape), shift 1.0, held "
+                              f"on {SPARSE_COV_COLS} columns")
+    ms = cuda_ms(lambda: cholesky.cholesky_solve(S, Bm), 3)
+    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 1)
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(Bm, torch.linalg.cholesky(S)), 3)
+    by_name = kernel_ms_by_name(lambda: cholesky.cholesky_solve(S, Bm), 2)
+    parts = {"factorization": "chol_solve_kernel", "packing": "chol_pack_kernel", "substitution": "chol_subst_kernel"}
+    got = {what: sum(t for n, t in by_name.items() if key in n) for what, key in parts.items()}
+    if not all(got.values()):
+        raise AssertionError(f"K1 many's kernels not all seen by the profiler: {sorted(by_name)}")
+    flops, nbytes = K ** 3 / 3 + 2.0 * K * K * N, 4.0 * (K * K + 2 * K * N)
+    print(f"{line}; kernel {ms:.3f} ms (" + ", ".join(f"{k} {v:.3f} ms" for k, v in got.items())
+          + f"; torch.profiler, 2 calls), plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
+          f"{max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3:.4f} ms (operations {flops / PEAK_F32 * 1e3:.4f}, bytes "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f})")
+    return dict(K=K, N=N, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=flops / PEAK_F32 * 1e3,
+                bytes_ms=nbytes / PEAK_BYTES * 1e3, **got)
 
 
 def k3_inputs(pr, cov, dev, queries=None):
@@ -1142,6 +1218,31 @@ def k2_pcg_check(what, args, active):
     if not (err <= K2_TOL and gap <= 1):
         raise AssertionError(f"K2 PCG disagrees with its plain version ({what}): {err}, iterations {gap} apart")
     return x, iters, err, xr, iters_r
+
+
+def k2_f64_check(what, args, active):
+    """K2 on an ill-conditioned system, run for a fixed budget (args' tol
+    < 0): within K2_TOL of its plain version over K2_SHORT iterations, and
+    over the budget no farther from a float64 run of the plain version
+    than K2_RATIO times the plain version is (K2_SHORT's note)."""
+    import torch
+
+    from mpsfm_tpu_torch.integration import bini_fused
+
+    st, b, dg, z, budget, tol = args
+    k2_pcg_check(f"{what}, {K2_SHORT} iterations", (st, b, dg, z, min(K2_SHORT, budget), tol), active)
+    x, _ = bini_fused.pcg(*args, active)
+    xr, _ = bini_fused.pcg_plain(*args, active)
+    x64, _ = bini_fused.pcg_plain(bini_fused.Stencil(*(t.double() for t in st)), b.double(), dg.double(),
+                                  z.double(), budget, tol, active)
+    err = float((x - xr).abs().max())
+    d_k, d_p = float((x.double() - x64).abs().max()), float((xr.double() - x64).abs().max())
+    line = (f"K2 pcg ({what}, {budget} iterations): max|kernel - plain| = {err:.3e}; from the float64 run kernel "
+            f"{d_k:.3e}, plain {d_p:.3e} (the kernel's within {K2_RATIO}x the plain version's + {K2_TOL})")
+    print(line)
+    if not (bool(torch.isfinite(x).all()) and d_k <= K2_RATIO * d_p + K2_TOL):
+        raise AssertionError(f"K2 PCG farther from the float64 run than its plain version: {line}")
+    return x, err
 
 
 def k2_floor_ms(dev, B, cpl, iters=200):
@@ -1841,8 +1942,6 @@ def refine_scene(bundle, B, H, W, device, seed=SEED):
     [0.9, 1.1] and 3% log-normal noise, with a 5% std; its normals are the
     plane's, with a 2° std. Returns (rec, pris, truth): truth[imid] the
     true points' depths in the image (keypoint order)."""
-    from mpsfm_tpu_torch.scene.image_priors import ImagePriors
-
     rng = np.random.default_rng(seed + 5)
     C, P = bundle.quat.shape[0], bundle.xyz.shape[0]
     rec = scene_reconstruction(bundle, range(C), bundle.quat, bundle.t)
@@ -1851,31 +1950,40 @@ def refine_scene(bundle, B, H, W, device, seed=SEED):
     lanes = np.linspace(0, C - 1, B).round().astype(int)
     for k in range(P):
         rec.add_point3D(bundle.xyz[k].astype(np.float64), [(c, k) for c in range(C)])
-    fx, fy, cx, cy = FOCAL * cam.sx, FOCAL * cam.sy, IMG_W / 2 * cam.sx, IMG_H / 2 * cam.sy
-    xs, ys = np.meshgrid((np.arange(W) + 0.5 - cx) / fx, (np.arange(H) + 0.5 - cy) / fy)
     pts = bench_points(P, seed)
     pris, truth = [], {}
     for c in lanes:
-        pose = rec.images[c].pose
-        z = pose.transform(pts)[:, 2]
-        truth[int(c)] = z
-        uv = (rec.images[c].keypoints - [IMG_W / 2, IMG_H / 2]) / FOCAL
-        abc = np.linalg.lstsq(np.c_[uv, np.ones(P)], 1.0 / z, rcond=None)[0]  # 1/z = a·x + b·y + c
-        plane = 1.0 / np.clip(abc[0] * xs + abc[1] * ys + abc[2], 1e-3, None)
-        prior = plane * rng.uniform(0.9, 1.1) * np.exp(rng.normal(scale=0.03, size=plane.shape))
-        n = -abc / np.linalg.norm(abc)
-        pri = ImagePriors(
-            {}, rec, int(c),
-            depth_dict={"depth": prior, "depth_variance": (0.05 * prior) ** 2},
-            normals_dict={"normals": np.broadcast_to(n, (H, W, 3)).copy(),
-                          "normals_variance": np.full((H, W), (np.pi / 180 * 2) ** 2)},
-            device=device,
-        )
-        im = rec.images[int(c)]
-        im.priors, im.depth, im.normals = pri, pri.depth, pri.normals
-        pri.depth.activate()
-        pris.append(pri)
+        truth[int(c)] = rec.images[c].pose.transform(pts)[:, 2]
+        pris.append(lane_prior(rec, int(c), truth[int(c)], H, W, rng, device))
     return rec, pris, truth
+
+
+def lane_prior(rec, c, z, H, W, rng, device):
+    """ImagePriors (the main path's conf) of image c, activated, on the
+    camera's H×W integration grid: the plane fitted (in inverse depth) to
+    its keypoints' true depths z, times a scale error in [0.9, 1.1] and 3%
+    log-normal noise, with a 5% std; the plane's normals with a 2° std."""
+    from mpsfm_tpu_torch.scene.image_priors import ImagePriors
+
+    cam = rec.cameras[1]
+    fx, fy, cx, cy = FOCAL * cam.sx, FOCAL * cam.sy, IMG_W / 2 * cam.sx, IMG_H / 2 * cam.sy
+    xs, ys = np.meshgrid((np.arange(W) + 0.5 - cx) / fx, (np.arange(H) + 0.5 - cy) / fy)
+    uv = (rec.images[c].keypoints - [IMG_W / 2, IMG_H / 2]) / FOCAL
+    abc = np.linalg.lstsq(np.c_[uv, np.ones(len(uv))], 1.0 / z, rcond=None)[0]  # 1/z = a·x + b·y + c
+    plane = 1.0 / np.clip(abc[0] * xs + abc[1] * ys + abc[2], 1e-3, None)
+    prior = plane * rng.uniform(0.9, 1.1) * np.exp(rng.normal(scale=0.03, size=plane.shape))
+    n = -abc / np.linalg.norm(abc)
+    pri = ImagePriors(
+        {}, rec, c,
+        depth_dict={"depth": prior, "depth_variance": (0.05 * prior) ** 2},
+        normals_dict={"normals": np.broadcast_to(n, (H, W, 3)).copy(),
+                      "normals_variance": np.full((H, W), (np.pi / 180 * 2) ** 2)},
+        device=device,
+    )
+    im = rec.images[c]
+    im.priors, im.depth, im.normals = pri, pri.depth, pri.normals
+    pri.depth.activate()
+    return pri
 
 
 def global_bundle(rec):
@@ -1965,6 +2073,8 @@ def run_scene_refinement(rec, pris, device, times=None, opt_conf=None):
     out["refine"] = timed("refine_3d_points", opt.refine_3d_points, bundle)
     times["build_ba_data (ba_fused, refine_3d_points)"] = TIMERS.totals["ba.build_data"]
     times["build_ba_data (calculate_point_covs)"] = TIMERS.totals["point_covs.build"]
+    if "ba.block_schur_tables" in TIMERS.totals:  # a bundle above the dense layout
+        times["make_block_schur_tables (in build_ba_data)"] = TIMERS.totals["ba.block_schur_tables"]
     out["quat"] = np.stack([rec.images[i].pose.q for i in sorted(rec.images)])
     out["t"] = np.stack([rec.images[i].pose.t for i in sorted(rec.images)])
     out["xyz"] = rec.xyz[rec.point_ids()].copy()
@@ -2429,16 +2539,16 @@ def mapping_summary(rec, ok, mapper, truth, n_points, bounds=(MAPPING_ATE, MAPPI
 @contextlib.contextmanager
 def last_call(module, name, size):
     """Swap module.name for a wrapper that keeps the arguments of its last
-    call among those of the largest size(args, result) (a dict under
-    "args"); the wrapped function runs as before, launches included."""
+    call among those of the largest size(args, result) (a dict: "args",
+    "kw"); the wrapped function runs as before, launches included."""
     fn = getattr(module, name)
-    kept = {"size": None, "args": None}
+    kept = {"size": None, "args": None, "kw": None}
 
-    def wrapper(*args):
-        out = fn(*args)
+    def wrapper(*args, **kw):
+        out = fn(*args, **kw)
         n = size(args, out)
         if kept["size"] is None or n >= kept["size"]:
-            kept["size"], kept["args"] = n, args
+            kept["size"], kept["args"], kept["kw"] = n, args, kw
         return out
 
     setattr(module, name, wrapper)
@@ -2471,13 +2581,17 @@ def path_kernel_args():
         yield {"K1": k1, "K1 many": k1_many, "K2 widest": k2_wide, "K2 busiest": k2_busy}
 
 
-def check_path_kernels(phase, kept, rec, dev):
+def check_path_kernels(phase, kept, rec, dev, pris=None, many_cols=None, k2_budget=False):
     """Each kernel held to its plain version at a phase's own shapes (kept
     by path_kernel_args; K3 at int_covs_bundle_batched's shapes of the final
-    map rec) and timed beside it. K1 takes K1_REL's less dominant class
-    (the last global BA's reduced system is as ill-conditioned; its
-    condition number printed), K1 many K1_ILL_REL and the float64 solve.
-    Returns {kernel: (ms, plain ms)}."""
+    map rec, over the priors `pris`, by default every registered image's)
+    and timed beside it. K1 takes K1_REL's less dominant class (the last
+    global BA's reduced system is as ill-conditioned; its condition number
+    printed), K1 many K1_ILL_REL and the float64 solve, on the first
+    many_cols right-hand sides when given (the kernel still timed on all).
+    With k2_budget (the ill-conditioned integrations of K2_SHORT's note),
+    K2 runs for the iterations its tolerance took at most, on every lane,
+    and is held by k2_f64_check. Returns {kernel: (ms, plain ms)}."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
@@ -2485,26 +2599,34 @@ def check_path_kernels(phase, kept, rec, dev):
 
     S, b = kept["K1"]["args"]
     kappa = float(torch.linalg.cond(S.double()))
-    _, _, line = k1_check(S, b, K1_REL[0.01], f"K1 at the {phase}'s last global BA (K={S.shape[0]}, "
-                          f"condition number {kappa:.3g})")
+    _, _, line = k1_check(S, b, K1_REL[0.01], f"K1 at the {phase}'s largest dense BA, the last of them "
+                          f"(K={S.shape[0]}, condition number {kappa:.3g})")
     times = {"K1": (cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20),
                     cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2))}
     print(line)
     S, Bm = kept["K1 many"]["args"]
     kappa = float(torch.linalg.cond(S.double()))
-    _, line = k1_many_check(S, Bm, K1_ILL_REL, f"K1 many at the {phase}'s largest point-covariance solve "
-                            f"(K={S.shape[0]}, N={Bm.shape[1]}, condition number {kappa:.3g})", f64=True)
+    cols = "" if many_cols is None else f", held on its first {many_cols} columns"
+    _, line = k1_many_check(S, Bm if many_cols is None else Bm[:, :many_cols].contiguous(), K1_ILL_REL,
+                            f"K1 many at the {phase}'s largest point-covariance solve (K={S.shape[0]}, "
+                            f"N={Bm.shape[1]}{cols}, condition number {kappa:.3g})", f64=True)
     times["K1 many"] = (cuda_ms(lambda: cholesky.cholesky_solve(S, Bm), 10),
                         cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 2))
     print(line)
     for name in ("K2 widest", "K2 busiest"):
         st, b2, dg, z, iters, tol, active = kept[name]["args"]
-        k2 = (st, b2, dg, z, iters, tol)
         B, H, W = z.shape
-        k2_pcg_check(f"{phase}, its {name[3:]} PCG: B={B} {H}x{W}", k2, active)
+        what = f"{phase}, its {name[3:]} PCG: B={B} {H}x{W}"
+        if k2_budget:
+            iters, tol = int(bini_fused.pcg(st, b2, dg, z, iters, tol, active)[1].max()), -1.0
+            k2 = (st, b2, dg, z, iters, tol)
+            k2_f64_check(f"{what}, its tolerance's largest iteration count as a fixed budget", k2, active)
+        else:
+            k2 = (st, b2, dg, z, iters, tol)
+            k2_pcg_check(what, k2, active)
         times[name] = (cuda_ms(lambda: bini_fused.pcg(*k2, active), 5),
                        cuda_ms(lambda: bini_fused.pcg_plain(*k2, active), 1))
-    pris = [rec.images[i].priors for i in rec.reg_image_ids()]
+    pris = [rec.images[i].priors for i in rec.reg_image_ids()] if pris is None else pris
     k3 = scene_k3_args(rec, pris, dev)
     k3_check(f"{phase}, int_covs of the final map", k3)
     times["K3"] = (cuda_ms(lambda: bini_diag.deflated_pcg(*k3), 2), cuda_ms(lambda: bini_diag.deflated_pcg_plain(*k3), 1))
@@ -2949,6 +3071,562 @@ def pipeline_card_vs_cpu(dev):
     return summ
 
 
+# ---- the sparse BA solver (slice 8) ----
+
+# the JAX package's 500+ image BA bench (scripts/bench_ba_large.py): __graft_entry__'s
+# _synthetic_ba_data_sparse at 512 cameras × 131 072 points, each seen by 6 consecutive cameras of
+# a sweep (786 432 observations; Pb·Cb = 67 M, 8.4× the dense layout's limit): the full-width BA
+SPARSE = dict(n_cams=512, n_pts=131072, track_len=6)
+# the refinement steps on the same sweep, with ImagePriors on B images at the main path's grid, cut to
+# 128 × 65 536 (Pb·Cb = 8.4 M, still above the layout): at 256 and 512 cameras the point covariances'
+# reduced camera system has modes below float32's resolution of its entries (sparse_covariance_gap)
+SPARSE_ROUTE = dict(n_cams=128, n_pts=65536, track_len=6, B=8, H=290, W=387)
+# tests/test_ba.py::test_block_schur_full_solve_parity's bundle, for the card against the CPU
+SPARSE_SMALL = dict(n_cams=16, n_pts=1024, track_len=4, seed=1)
+# the start of both: rotation (rad) and translation noise of the poses, and the points' noise (each
+# axis; the JAX bench's 0.05 is below what the BA itself leaves at 0.5 px over 0.5 of baseline, 0.07-0.08
+# as a median, so moving toward the truth would not show)
+SPARSE_POSE_NOISE, SPARSE_POINT_NOISE = (0.005, 0.025), 0.2
+# right-hand sides on which K1 many is held to its plain version (and the float64 solve) at the
+# covariances' shapes: the first 8192 points' 3 columns each (32 float64 solves over all would take minutes)
+SPARSE_COV_COLS = 24576
+
+
+def valid_slot_tables(ids, valid_rows, P):
+    """Slot tables (P, K) over the valid rows only, vectorized (the JAX
+    package's parallel/dist_ba._slot_tables_local)."""
+    idx = np.where(valid_rows)[0]
+    ids_v = np.asarray(ids)[idx]
+    counts = np.bincount(ids_v, minlength=P) if len(ids_v) else np.zeros(P, np.int64)
+    K = max(int(counts.max()) if len(ids_v) else 1, 1)
+    slots = np.zeros((P, K), np.int32)
+    mask = np.zeros((P, K), np.float32)
+    if len(ids_v):
+        order = np.argsort(ids_v, kind="stable")
+        sorted_ids = ids_v[order]
+        pos = np.arange(len(sorted_ids)) - np.searchsorted(sorted_ids, sorted_ids)
+        slots[sorted_ids, pos] = idx[order]
+        mask[sorted_ids, pos] = 1.0
+    return slots, mask
+
+
+def _rotmats(q):
+    """(n,3,3) row-major rotations of (n,4) wxyz quaternions."""
+    w, x, y, z = q.T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+        np.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+        np.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def sparse_scene(n_cams=256, n_pts=65536, track_len=6, seed=SEED):
+    """The JAX package's large bundle (__graft_entry__._synthetic_ba_data_sparse)
+    in numpy, with the same draws: a sweep of cameras 0.1 apart along x
+    with a 0.001 rad yaw step, each point 4-9 in front of the middle
+    camera of its track of track_len consecutive cameras, 0.5 px noise on
+    every observation; log-depth rows (2% noise) on the first observation
+    of every 4th point; the points' start 0.05 off. Returns the truth
+    (quat, t, pts), the start xyz, the observations (cam, pt, uv, track
+    k-th observation of point p at row k·P + p) and the depth rows."""
+    rng = np.random.default_rng(seed)
+    f, cx, cy = FOCAL, IMG_W / 2, IMG_H / 2
+    quats = np.zeros((n_cams, 4), np.float32)
+    quats[:, 0] = 1.0
+    quats[:, 2] = 0.001 * np.arange(n_cams) / 2  # small-angle yaw
+    quats /= np.linalg.norm(quats, axis=1, keepdims=True)
+    ts = np.stack([-0.1 * np.arange(n_cams), np.zeros(n_cams), np.zeros(n_cams)], -1).astype(np.float32)
+    start = rng.integers(0, max(n_cams - track_len, 1), n_pts)
+    mid = np.minimum(start + track_len // 2, n_cams - 1)
+    local = np.stack([rng.uniform(-2, 2, n_pts), rng.uniform(-1.5, 1.5, n_pts), rng.uniform(4, 9, n_pts)],
+                     -1).astype(np.float32)
+    pts = np.einsum("nij,ni->nj", _rotmats(quats[mid]), local - ts[mid]).astype(np.float32)  # R_midᵀ (x − t_mid)
+    cam_of, uv_of, z_of = [], [], []
+    for k in range(track_len):
+        c = np.minimum(start + k, n_cams - 1)
+        w, x, y, z = quats[c].T
+        R00, R01, R02 = 1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)
+        R10, R11, R12 = 2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)
+        R20, R21, R22 = 2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)
+        px = R00 * pts[:, 0] + R01 * pts[:, 1] + R02 * pts[:, 2] + ts[c, 0]
+        py = R10 * pts[:, 0] + R11 * pts[:, 1] + R12 * pts[:, 2] + ts[c, 1]
+        pz = R20 * pts[:, 0] + R21 * pts[:, 1] + R22 * pts[:, 2] + ts[c, 2]
+        u = f * px / pz + cx + rng.normal(scale=0.5, size=n_pts)
+        v = f * py / pz + cy + rng.normal(scale=0.5, size=n_pts)
+        cam_of.append(c)
+        uv_of.append(np.stack([u, v], -1))
+        z_of.append(pz)
+    dsel = np.arange(0, n_pts, 4)
+    d_log = (np.log(np.maximum(z_of[0][dsel], 1e-3)) + rng.normal(scale=0.02, size=len(dsel))).astype(np.float32)
+    xyz = pts + rng.normal(scale=0.05, size=pts.shape).astype(np.float32)
+    return SimpleNamespace(
+        quat=quats, t=ts, pts=pts, xyz=xyz, start=start, track_len=track_len,
+        obs_cam=np.concatenate(cam_of), obs_pt=np.tile(np.arange(n_pts), track_len),
+        obs_uv=np.concatenate(uv_of).astype(np.float32),
+        d_cam=np.minimum(start[dsel], n_cams - 1), d_pt=dsel, d_log=d_log,
+    )
+
+
+def sparse_ba_arrays(sc):
+    """The scene as the fields of the JAX package's BAData (numpy), packed
+    camera-major as _synthetic_ba_data_sparse packs them (no per-(point,
+    camera) tables: the block-Schur tables come from the port's
+    make_block_schur_tables)."""
+    C, P = sc.quat.shape[0], sc.pts.shape[0]
+
+    def pack(cam, n):
+        order = np.argsort(cam, kind="stable")
+        counts = np.bincount(cam, minlength=n)
+        S = max(int(counts.max()), 1)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rows = np.repeat(np.arange(n) * S, counts) + (np.arange(len(cam)) - np.repeat(starts, counts))
+        return order, rows, S
+
+    order, rows, Sc = pack(sc.obs_cam, C)
+    No = C * Sc
+    r_pt, r_uv, r_valid = np.zeros(No, np.int64), np.zeros((No, 2), np.float32), np.zeros(No, np.float32)
+    r_pt[rows], r_uv[rows], r_valid[rows] = sc.obs_pt[order], sc.obs_uv[order], 1.0
+    dorder, drows, Sd = pack(sc.d_cam, C)
+    Nd = C * Sd
+    d_pt, d_log, d_valid = np.zeros(Nd, np.int64), np.zeros(Nd, np.float32), np.zeros(Nd, np.float32)
+    d_pt[drows], d_log[drows], d_valid[drows] = sc.d_pt[dorder], sc.d_log[dorder], 1.0
+    cam_dof = np.ones((C, 6), np.float32)
+    cam_dof[0] = 0.0
+    cam_dof[1, 3] = 0.0
+    f32 = np.float32
+    arrays = dict(
+        quat=sc.quat, t=sc.t, cam_dof=cam_dof, fx=np.full(C, FOCAL, f32), fy=np.full(C, FOCAL, f32),
+        cx=np.full(C, IMG_W / 2, f32), cy=np.full(C, IMG_H / 2, f32), xyz=sc.xyz, point_var=np.ones(P, f32),
+        r_cam=np.arange(No) // Sc, r_pt=r_pt, r_uv=r_uv, r_valid=r_valid, r_mag=r_valid.copy(),
+        r_scale=np.full(No, 1.5, f32), d_cam=np.arange(Nd) // Sd, d_pt=d_pt, d_logtarget=d_log, d_valid=d_valid,
+        d_mag=100.0 * d_valid, d_scale=np.full(Nd, 2.0, f32),
+    )
+    arrays["r_pt_slots"], arrays["r_pt_slot_mask"] = valid_slot_tables(r_pt, r_valid > 0, P)
+    arrays["d_pt_slots"], arrays["d_pt_slot_mask"] = valid_slot_tables(d_pt, d_valid > 0, P)
+    return arrays
+
+
+def sparse_tables(arrays):
+    """The port's make_block_schur_tables of BAData arrays (numpy)."""
+    from mpsfm_tpu_torch.ba.schur_sparse import make_block_schur_tables
+
+    return make_block_schur_tables(*(arrays[k] for k in ("r_pt", "r_cam", "r_valid", "d_pt", "d_cam", "d_valid")),
+                                   arrays["xyz"].shape[0], arrays["quat"].shape[0])
+
+
+def sparse_reconstruction(sc, B, H, W, device, pose_noise=SPARSE_POSE_NOISE, point_noise=SPARSE_POINT_NOISE,
+                          seed=SEED):
+    """A port Reconstruction of the scene on `device`: image i is the sweep's
+    camera sc.cam_of[i] (see below), its keypoints its observations (by
+    point), registered at its true pose perturbed by pose_noise (images 0
+    and 1, the BA's gauge pair, exact), every point with its track,
+    point_noise off the truth; the camera's integration grid H×W; and
+    ImagePriors on B images spread over the sweep's cameras that see
+    points, each from its own points (lane_prior). Returns (rec, pris).
+
+    The BA fixes the pose of the bundle's first image and the x
+    translation of its second (ba/problem.py), which pins the scale. With
+    the sweep's first two cameras as that pair (0.1 apart on a sweep 0.1 ×
+    C long) the scale is a soft mode of the reduced camera system (tx
+    growing along the sweep: eigenvalue 0.249 at 64 cameras, 0.0259 at
+    128, against a largest of 4e8 and 1e9), below float32's resolution of
+    S at a few hundred cameras, where the point covariances' Cholesky
+    meets a negative pivot. So image 1 is the sweep's last camera that
+    sees points, as a mapper's gauge pair spans its scene: sc.cam_of =
+    [0, last seen, 1, 2, ...]."""
+    from mpsfm_tpu_torch.scene.reconstruction import HostCamera, ImageRecord, Pose, Reconstruction
+
+    rng = np.random.default_rng(seed + 9)
+    C, P = sc.quat.shape[0], sc.pts.shape[0]
+    counts = np.bincount(sc.obs_cam, minlength=C)
+    seen = np.flatnonzero(counts)  # the sweep's last cameras may see no point (the JAX package's draw)
+    cam_of = np.concatenate([[0, seen[-1]], np.setdiff1d(np.arange(C), [0, seen[-1]])])
+    sc.cam_of = cam_of
+    imid_of = np.argsort(cam_of)
+    obs_im = imid_of[sc.obs_cam]
+    order = np.lexsort((sc.obs_pt, obs_im))
+    icounts = counts[cam_of]
+    starts = np.concatenate([[0], np.cumsum(icounts)[:-1]])
+    kp_of = np.empty(len(order), np.int64)
+    kp_of[order] = np.arange(len(order)) - starts[obs_im[order]]
+    rec = Reconstruction()
+    rec.add_camera(HostCamera(1, np.array([FOCAL, FOCAL, IMG_W / 2, IMG_H / 2]), int(IMG_W), int(IMG_H)))
+    cam = rec.cameras[1]
+    cam.int_width, cam.int_height = W, H
+    for i, c in enumerate(cam_of.tolist()):
+        im = ImageRecord(i, f"im{i:04d}.jpg", 1)
+        im.keypoints = sc.obs_uv[order[starts[i]:starts[i] + icounts[i]]].astype(np.float64)
+        im.point3D_ids = np.full(icounts[i], -1, np.int64)
+        q, t = sc.quat[c].astype(np.float64), sc.t[c].astype(np.float64)
+        if i >= 2:
+            dq = np.concatenate([[1.0], rng.normal(scale=pose_noise[0], size=3)])
+            dq /= np.linalg.norm(dq)
+            q = np.array([dq[0] * q[0] - dq[1:] @ q[1:], *(dq[0] * q[1:] + q[0] * dq[1:] + np.cross(dq[1:], q[1:]))])
+            t = t + rng.normal(scale=pose_noise[1], size=3)
+        im.pose = Pose(q / np.linalg.norm(q), t)
+        im.registered = True
+        rec.add_image(im)
+    ims = obs_im.reshape(sc.track_len, P)
+    kps = kp_of.reshape(sc.track_len, P)
+    xyz = sc.pts.astype(np.float64) + rng.normal(scale=point_noise, size=sc.pts.shape)
+    for p in range(P):
+        rec.add_point3D(xyz[p], list(zip(ims[:, p].tolist(), kps[:, p].tolist())))
+    pris = []
+    for c in seen[np.linspace(0, len(seen) - 1, B).round().astype(int)].tolist():
+        i = int(imid_of[c])
+        pids = rec.images[i].point3D_ids
+        R = _rotmat(sc.quat[c].astype(np.float64))
+        z = (sc.pts[pids].astype(np.float64) @ R.T + sc.t[c])[:, 2]
+        pris.append(lane_prior(rec, i, z, H, W, rng, device))
+    return rec, pris
+
+
+def sparse_errors(rec, sc):
+    """Median rotation (deg) and translation error of the cameras and
+    median point error, against the truth."""
+    rot, trans = [], []
+    for i in sorted(rec.images):
+        c = sc.cam_of[i]
+        pose = rec.images[i].pose
+        dq = abs(float(np.dot(pose.q, sc.quat[c] / np.linalg.norm(sc.quat[c]))))
+        rot.append(np.rad2deg(2 * np.arccos(min(dq, 1.0))))
+        trans.append(np.linalg.norm(pose.t - sc.t[c]))
+    pids = rec.point_ids()
+    return dict(rot=float(np.median(rot)), trans=float(np.median(trans)),
+                pts=float(np.median(np.linalg.norm(rec.xyz[pids] - sc.pts[pids], axis=1))))
+
+
+def sparse_dense_schur_route(dev, n_cams=FULL["n_cams"], n_pts=FULL["n_pts"], iters=LM_ITERS):
+    """solve_ba on the bench bundle with its per-(point, camera) tables
+    (the dense-Schur route: K1 once per LM iteration) on the card,
+    rel_tol 0, against the port's solve_ba_dense on the same bundle at
+    tests/test_ba.py::test_dense_ba_matches_sparse's bounds, its points
+    closer to the truth (every camera sees every point); K1 held to its
+    plain version on the reduced system with the largest right-hand side
+    (last_call; the first step's: the last ones are near 0) and timed.
+    Returns the numbers printed."""
+    import torch
+
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.ba import cholesky, dense, solver
+
+    b = synthetic_bundle(n_cams, n_pts)
+    truth = bench_points(n_pts)
+    data = convert.ba_data(ba_arrays(b), device=dev)
+    solver.solve_ba(data, max_iters=2, rel_tol=0.0)  # warm-up
+    n0 = cholesky.KERNEL.launches
+    with last_call(solver, "cholesky_solve", lambda a, out: float(a[1].abs().max())) as kept:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        q, t, x, info = solver.solve_ba(data, max_iters=iters, rel_tol=0.0)
+        cost = float(info["cost"])
+        wall = time.perf_counter() - t0
+    launches = cholesky.KERNEL.launches - n0
+    _, td, xd, info_d = dense.solve_ba_dense(dense.densify(b, n_cams, n_pts, dev), max_iters=iters, rel_tol=0.0)
+    gaps = dict(t=float((t - td).abs().max()), xyz=float((x - xd).abs().max()),
+                cost=abs(cost - float(info_d["cost"])) / float(info_d["cost"]))
+    pts_err = [float(np.median(np.linalg.norm(np.asarray(a, np.float64) - truth, axis=1))) for a in (b.xyz, x.cpu())]
+    line = (f"sparse BA, dense-Schur route ({n_cams} x {n_pts}, with per-(point, camera) tables): solve_ba "
+            f"{iters} LM iterations in {wall:.4f} s wall, {iters / wall:.3f} LM iterations/s, {launches} K1 launches; "
+            f"cost {float(info['cost0']):.6g} -> {cost:.6g} ({info['accepted']} accepted); against solve_ba_dense: "
+            f"max|dt| {gaps['t']:.3e} (bound 5e-3), max|dxyz| {gaps['xyz']:.3e} (bound 2e-2), cost {gaps['cost']:.3e} "
+            f"relative (bound 5e-2); the points' median error to the truth {pts_err[0]:.4g} -> {pts_err[1]:.4g}")
+    print(line)
+    if not (gaps["t"] <= 5e-3 and gaps["xyz"] <= 2e-2 and gaps["cost"] <= 0.05 and cost < float(info["cost0"])
+            and launches == iters and pts_err[1] < pts_err[0]):
+        raise AssertionError(line)
+    S, rhs = kept["args"]
+    _, _, line = k1_check(S, rhs, K1_REL[0.01], f"K1 at solve_ba's reduced system with the largest right-hand side "
+                          f"(K={S.shape[0]}, condition number {float(torch.linalg.cond(S.double())):.3g})")
+    ms = cuda_ms(lambda: cholesky.cholesky_solve(S, rhs), 20)
+    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, rhs), 2)
+    print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
+    return dict(lm_per_s=iters / wall, launches=launches, k1_ms=ms, k1_plain_ms=plain_ms, **gaps)
+
+
+def check_sparse_refinement(out, kept_solve):
+    """The large route's checks; raises on the first that fails."""
+    cov = out["cov"].double().cpu().numpy()
+    a, b, c = cov[:, 0, 0], cov[:, 0, 1], cov[:, 0, 2]
+    d, e, f = cov[:, 1, 1], cov[:, 1, 2], cov[:, 2, 2]
+    minors = (a, a * d - b * b, a * (d * f - e * e) - b * (b * f - c * e) + c * (b * e - c * d))
+    asym = np.abs(cov - cov.transpose(0, 2, 1)).max() / np.abs(cov).max()
+    if not (np.isfinite(cov).all() and asym < 1e-5 and all((m > 0).all() for m in minors)):
+        raise AssertionError(f"sparse BA covariances not finite, symmetric ({asym}) or positive definite")
+    if not (out["slots"] >= 0).all():
+        raise AssertionError(f"{int((out['slots'] < 0).sum())} points have no slot in the parked covariances")
+    for k in ("ba_global", "ba_local", "refine"):
+        info, ok = out[k]
+        if not (ok and info["cost"] < info["cost0"] and info["accepted"] >= 1):
+            raise AssertionError(f"sparse BA {k}: {info}, success {ok}")
+    data = (kept_solve["args"] or (None,))[0]
+    if data is None or data.bs is None or data.pc_r_slot is not None:
+        raise AssertionError("the global BA did not reach solve_ba with the block-sparse Schur tables")
+    if not (np.isfinite(out["xyz"]).all() and np.isfinite(out["trunc"])):
+        raise AssertionError(f"points or the truncation multiplier ({out['trunc']}) not finite")
+
+
+def solve_ba_timed(data, cg_iters, dev):
+    """solve_ba on `data` (after a 2-iteration warm-up), LM_ITERS
+    iterations at rel_tol 0: (LM iterations/s, CG iterations per LM step,
+    info). The wall includes its host reads."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import solver
+
+    solver.solve_ba(data, max_iters=2, rel_tol=0.0, cg_iters=cg_iters)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    info = solver.solve_ba(data, max_iters=LM_ITERS, rel_tol=0.0, cg_iters=cg_iters)[3]
+    cg = info["cg_iters"].cpu().numpy()
+    return LM_ITERS / (time.perf_counter() - t), cg, info
+
+
+def sparse_large_route(dev, counted, size=SPARSE_ROUTE):
+    """The refinement steps of the JAX Mapper (run_scene_refinement) on the
+    sweep above the dense layout: point covariances (K1 many at K = 6·Cb),
+    the global step (integration (K2), int_covs (K3), ba_fused falling
+    back to finalize_deferred_all, the host depth rows and solve_ba on the
+    block-sparse Schur tables), the local step (dense: K1) and
+    refine_3d_points (the same fallback, poses fixed); once to warm up,
+    then on a fresh scene with the launch counts at 0. Checks
+    (check_sparse_refinement), the truth's errors before and after, one
+    wall line per entry point, build_ba_data's host time with
+    make_block_schur_tables apart, the peak device memory, launches; on the
+    card each kernel held to its plain version at the route's shapes
+    (check_path_kernels) and solve_ba timed on the global BA's problem.
+    Returns (numbers, launches)."""
+    import gc
+
+    import torch
+
+    from mpsfm_tpu_torch.mapper import optimizer as topt
+
+    dev = torch.device(dev)
+    sc = sparse_scene(size["n_cams"], size["n_pts"], size["track_len"])
+    t = time.perf_counter()
+    rec, pris = sparse_reconstruction(sc, size["B"], size["H"], size["W"], dev)
+    build_s = time.perf_counter() - t
+    run_scene_refinement(rec, pris, dev)  # warm-up
+    del rec, pris
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    rec, pris = sparse_reconstruction(sc, size["B"], size["H"], size["W"], dev)
+    before = sparse_errors(rec, sc)
+    for k in counted.values():
+        k.launches = 0
+    times = {}
+    with path_kernel_args() as kept, \
+            last_call(topt, "solve_ba", lambda a, out: float(a[0].cam_dof.sum())) as kept_solve:
+        t = time.perf_counter()
+        out = run_scene_refinement(rec, pris, dev, times)
+        wall = time.perf_counter() - t
+    launches = {name: k.launches for name, k in counted.items()}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else float("nan")
+    check_sparse_refinement(out, kept_solve)
+    after = sparse_errors(rec, sc)
+    C, P = sc.quat.shape[0], sc.pts.shape[0]
+    data = kept_solve["args"][0]
+    Cb, Pb = data.quat.shape[0], data.xyz.shape[0]
+    print(f"sparse BA, large route: {C} images x {P} points (tracks of {size['track_len']}, {sc.obs_cam.size} "
+          f"observations; Pb x Cb = {Pb * Cb} against the dense layout's 8000000), ImagePriors on {len(pris)} images "
+          f"at {size['H']}x{size['W']} (scene and priors built in {build_s:.3f} s); {wall:.3f} s wall; peak device "
+          f"memory {peak:.2f} GiB; launches {json.dumps(launches)}")
+    for k in ("ba_global", "ba_local", "refine"):
+        info = out[k][0]
+        print(f"sparse BA {k}: cost {info['cost0']:.6g} -> {info['cost']:.6g}, {info['accepted']} accepted")
+    print(f"sparse BA, large route: median errors to the truth before {before}, after {after} (not held: the "
+          f"planar priors of a point cloud pull the sweep's soft modes); truncation multiplier {out['trunc']:.6g}; "
+          f"the global BA's tables: {len(data.bs.con_a)} buckets, {int(data.bs.blk_rows.shape[0])} blocks, Tu "
+          f"{int(data.bs.uni_slots.shape[1])}")
+    for name, sec in times.items():
+        print(f"sparse BA {name}: {sec:.4f} s wall")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched in the sparse BA large route")
+    res = dict(wall=wall, peak_gib=peak, launches=launches, before=before, after=after, times=times)
+    if dev.type == "cuda":
+        res["kernels"] = check_path_kernels("sparse BA large route", kept, rec, dev, pris=pris,
+                                            many_cols=SPARSE_COV_COLS, k2_budget=True)
+        res["lm_per_s"], cg, info = solve_ba_timed(data, kept_solve["kw"]["cg_iters"], dev)
+        print(f"sparse BA solve_ba on the large route's global BA problem (block-sparse Schur, {Cb} x {Pb}): "
+              f"{res['lm_per_s']:.3f} LM iterations/s; CG iterations per LM step {cg.tolist()} (mean {cg.mean():.2f}); "
+              f"cost {float(info['cost0']):.6g} -> {float(info['cost']):.6g}, {info['accepted']} accepted")
+    del kept, kept_solve, rec, pris, out
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res, launches
+
+
+def truth_cost(prob, sc):
+    """The problem's cost (_cost_only, the BA's losses) at the true poses
+    and points: a converged BA's cost is at or below it."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import losses, solver
+
+    d = prob.data
+    Cb, Pb = d.quat.shape[0], d.xyz.shape[0]
+    cams = sc.cam_of[np.asarray(prob.cam_ids)]
+    q = np.zeros((Cb, 4), np.float32)
+    q[:, 0] = 1.0
+    q[:len(cams)] = sc.quat[cams]
+    t = np.zeros((Cb, 3), np.float32)
+    t[:len(cams)] = sc.t[cams]
+    x = np.zeros((Pb, 3), np.float32)
+    x[:prob.n_pts] = sc.pts[prob.pt_ids]
+    dev = d.xyz.device
+    return float(solver._cost_only(d, *(torch.as_tensor(a, device=dev) for a in (q, t, x)), losses.SOFT_L1,
+                                   losses.CAUCHY))
+
+
+def sparse_covariance_gap(rec, dev):
+    """The point covariances' reduced camera system S + 1e-8·I of rec's
+    global bundle, as ba/covariance.py forms it in float32 (the JAX
+    package's algorithm): its smallest eigenvalues in float64, and the
+    share of finite covariances Optimizer.calculate_point_covs parks.
+    Returns (eigenvalues, finite share, K, N)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import covariance
+    from mpsfm_tpu_torch.mapper.optimizer import Optimizer
+
+    with last_call(covariance, "cholesky_solve", lambda a, out: a[1].numel()) as kept:
+        Optimizer({}, rec, device=dev).calculate_point_covs(global_bundle(rec))
+    cov = rec.point_covs.device_view()[0]
+    S, Bm = kept["args"]
+    ev = torch.linalg.eigvalsh(S.double())[:8].cpu().numpy()
+    return ev, float(torch.isfinite(cov).all(dim=(1, 2)).double().mean()), S.shape[0], Bm.shape[1]
+
+
+def sparse_full_width(dev, counted, size=SPARSE):
+    """The JAX package's 500+ image BA bench as a Reconstruction (sweep
+    cameras perturbed, points 0.2 off, no priors) through the Optimizer's
+    entry points on the card, the launch counts at 0 just before:
+    Optimizer.ba (the global bundle above the dense layout: block-sparse
+    Schur tables, solve_ba) and refine_3d_points (ba_fused's fallback,
+    poses fixed). Held: solve_ba on the block-sparse tables; the cost
+    below its start and at or below the cost at the truth (the optimum
+    is); refine_3d_points leaves the poses. The errors to the truth are
+    printed, not held: the sweep's soft modes (scale and bending along
+    512 cameras) put the optimum itself farther from the truth than the
+    start (rotations 0.87 -> 1.58 deg, PERF.md). Then the point
+    covariances at this size (sparse_covariance_gap, printed; K1 many at
+    their shape is timed in k1_many_phase); solve_ba timed on the global
+    BA's problem. Returns (numbers, launches)."""
+    import gc
+
+    import torch
+
+    from mpsfm_tpu_torch.mapper import optimizer as topt
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    dev = torch.device(dev)
+    sc = sparse_scene(size["n_cams"], size["n_pts"], size["track_len"])
+    t = time.perf_counter()
+    rec, _ = sparse_reconstruction(sc, 0, 1, 1, dev)
+    build_s = time.perf_counter() - t
+    before = sparse_errors(rec, sc)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for k in counted.values():
+        k.launches = 0
+    TIMERS.reset()
+    opt = topt.Optimizer({}, rec, device=dev)
+    bundle = global_bundle(rec)
+    times = {}
+    with last_call(topt, "solve_ba", lambda a, out: float(a[0].cam_dof.sum())) as kept_solve, \
+            last_call(topt, "apply_ba_result", lambda a, out: float(a[1].data.cam_dof.sum())) as kept_prob:
+        for name, fn in (("Optimizer.ba", opt.ba), ("refine_3d_points", opt.refine_3d_points)):
+            q0 = {i: rec.images[i].pose.q.copy() for i in rec.images}
+            t = time.perf_counter()
+            info, ok = fn(bundle)
+            times[name] = time.perf_counter() - t
+            if name == "Optimizer.ba":
+                ba_info, after = info, sparse_errors(rec, sc)
+                gt_cost = truth_cost(kept_prob["args"][1], sc)
+            elif not (ok and info["cost"] <= info["cost0"]
+                      and all(np.abs(rec.images[i].pose.q - q0[i]).max() <= 1e-6 for i in rec.images)):
+                raise AssertionError(f"refine_3d_points above the dense layout: {info}, success {ok}")
+    launches = {name: k.launches for name, k in counted.items()}
+    times["build_ba_data"] = TIMERS.totals["ba.build_data"]
+    times["make_block_schur_tables (in build_ba_data)"] = TIMERS.totals["ba.block_schur_tables"]
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else float("nan")
+    data = kept_solve["args"][0]
+    Cb, Pb = data.quat.shape[0], data.xyz.shape[0]
+    line = (f"sparse BA, full width: {sc.quat.shape[0]} images x {sc.pts.shape[0]} points (tracks of "
+            f"{size['track_len']}, {sc.obs_cam.size} observations; Pb x Cb = {Pb * Cb}; built in {build_s:.3f} s): "
+            f"Optimizer.ba cost {ba_info['cost0']:.6g} -> {ba_info['cost']:.6g} ({ba_info['accepted']} accepted; "
+            f"at the truth {gt_cost:.6g}); median errors to the truth before {before}, after {after}; peak device "
+            f"memory {peak:.2f} GiB; launches {json.dumps(launches)}")
+    print(line)
+    if not (data.bs is not None and data.pc_r_slot is None and ba_info["cost"] < ba_info["cost0"]
+            and ba_info["cost"] <= gt_cost):
+        raise AssertionError(line)
+    for name, sec in times.items():
+        print(f"sparse BA full width {name}: {sec:.4f} s wall")
+    res = dict(times=times, before=before, after=after, peak_gib=peak, launches=launches, cost=ba_info["cost"],
+               truth_cost=gt_cost)
+    if dev.type == "cuda":
+        res["lm_per_s"], cg, info = solve_ba_timed(data, kept_solve["kw"]["cg_iters"], dev)
+        res["cg_per_lm"] = float(cg.mean())
+        print(f"sparse BA solve_ba on the full-width global BA problem (block-sparse Schur, {Cb} x {Pb}): "
+              f"{res['lm_per_s']:.3f} LM iterations/s; CG iterations per LM step {cg.tolist()} (mean {cg.mean():.2f}); "
+              f"cost {float(info['cost0']):.6g} -> {float(info['cost']):.6g}, {info['accepted']} accepted")
+        del kept_solve, kept_prob, data
+        ev, finite, K, N = sparse_covariance_gap(rec, dev)
+        print(f"sparse BA full width, point covariances (K={K}, N={N}): the smallest eigenvalues of S + 1e-8 I "
+              f"(float64 of its float32 entries) {[float(f'{v:.3g}') for v in ev]}; finite covariances {finite:.4f} "
+              f"of the points")
+        res["cov_eigs"], res["cov_finite"] = ev.tolist(), finite
+    del rec
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return res, launches
+
+
+def sparse_card_vs_cpu(dev, size=SPARSE_SMALL, iters=10):
+    """solve_ba at tests/test_ba.py::test_block_schur_full_solve_parity's
+    size (16 × 1024, tracks of 4) with the block-sparse Schur tables on the
+    card and on the CPU, and without them (matrix-free) on the card: every
+    final cost within 2% + 1e-3 of the CPU's, and a tenfold drop."""
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.ba import solver
+
+    arrays = sparse_ba_arrays(sparse_scene(**size))
+    bs = sparse_tables(arrays)
+    costs = {}
+    for name, d, tables in (("CPU, block-sparse Schur", "cpu", bs), ("card, block-sparse Schur", dev, bs),
+                            ("card, matrix-free", dev, None)):
+        info = solver.solve_ba(convert.ba_data({**arrays, "bs": tables}, device=d), max_iters=iters)[3]
+        costs[name] = (float(info["cost0"]), float(info["cost"]))
+    ref = costs["CPU, block-sparse Schur"][1]
+    line = (f"sparse BA, small ({size['n_cams']} x {size['n_pts']}, tracks of {size['track_len']}), {iters} LM "
+            f"iterations, cost0 -> cost: " + "; ".join(f"{k} {a:.6g} -> {b:.6g}" for k, (a, b) in costs.items())
+            + f" (each within 2% + 1e-3 of the CPU's)")
+    print(line)
+    if not all(abs(c - ref) <= 0.02 * ref + 1e-3 and c < 0.1 * c0 for c0, c in costs.values()):
+        raise AssertionError(line)
+    return costs
+
+
+def sparse_ba_phase(dev, counted):
+    """Slice 8, the sparse BA solver on the card: the dense-Schur route at
+    the bench bundle (sparse_dense_schur_route), the refinement steps above
+    the dense layout (sparse_large_route), the full-width BA
+    (sparse_full_width), and the card against the CPU at a small size
+    (sparse_card_vs_cpu). Returns (numbers, {route: launches})."""
+    out = {"dense_schur": sparse_dense_schur_route(dev)}
+    out["large"], large = sparse_large_route(dev, counted)
+    out["full"], full = sparse_full_width(dev, counted)
+    out["small"] = sparse_card_vs_cpu(dev)
+    return out, {"large route": large, "full width": full}
+
+
 def profile_slice(inputs, dev, top=12):
     """Device time of one main-path run by kernel (torch.profiler), and the
     device's busy share of the run's wall time."""
@@ -3052,6 +3730,7 @@ def main():
     mapping_card_vs_cpu(dev)
     _, pipeline_launches = pipeline_phase(dev, counted)
     pipeline_card_vs_cpu(dev)
+    _, sparse_launches = sparse_ba_phase(dev, counted)
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 
@@ -3079,6 +3758,7 @@ def main():
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")
+    print(f"sparse BA launches: {json.dumps(sparse_launches)}")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

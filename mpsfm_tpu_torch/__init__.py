@@ -5,9 +5,9 @@ beside it slice by slice and never imports it (nor jax). So far: the
 mapper's refinement step with its uncertainty chain — point covariances,
 BiNI gate + IRLS/PCG solve, diag(H⁻¹) at the keypoints and the updated
 depth variances, the depth-consistency check's device core, device-side
-depth rows, dense LM-Schur bundle adjustment — driven from the scene
-(the Reconstruction, per-image priors, the BA problem and the Optimizer's
-dense path), the geometry and robust estimators, and the mapper's
+depth rows, dense and sparse LM-Schur bundle adjustment — driven from the
+scene (the Reconstruction, per-image priors, the BA problem and the
+Optimizer), the geometry and robust estimators, and the mapper's
 control loop over them (MpsfmMapper: registration, triangulation,
 next-view selection, the depth-consistency checker), which maps a scene;
 and the main path from images (pipeline.reconstruct, cli), which maps an
@@ -24,11 +24,15 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   mapper/depth_consistency.py  z-buffered cross-projection, whitened
                             counts of a query against B refs, bundle score,
                             the checker with its relaxation ladder
-  ba/losses.py, solver.py   robust losses, BAData + assembly, LM helpers
+  ba/losses.py              robust losses
   ba/cholesky.py            reduced-camera Cholesky solve, one or many
                             right-hand sides (CUDA kernels K1)
   ba/covariance.py          Schur point covariances
   ba/dense.py               dense (C,P) LM-Schur BA
+  ba/solver.py              slot-table LM (solve_ba): dense-Schur (K1),
+                            block-sparse Schur CG or matrix-free PCG
+  ba/schur_sparse.py        the explicit block-sparse Schur complement of
+                            bundles above the dense layout
   ba/device_depth.py        depth observation rows sampled on the device
   integration/bini.py       BiNI energy, IRLS, anchor transport, diag(H⁻¹),
                             builders
@@ -37,8 +41,8 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   ba/problem.py             the BA problem from the Reconstruction (host
                             passes, padded BAData / DenseBAData tensors)
   ba/shift_scale.py         prior shift/scale, truncation multiplier (host)
-  mapper/optimizer.py       the Optimizer's dense path (ba, ba_fused,
-                            refine_3d_points, point covariances)
+  mapper/optimizer.py       the Optimizer (ba, ba_fused, refine_3d_points,
+                            point covariances), dense and sparse paths
   mapper/registration.py    init pair and next image (RANSACs on the device)
   mapper/triangulator.py, image_selection.py
                             track building and next-view ranking (host numpy)

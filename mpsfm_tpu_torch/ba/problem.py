@@ -14,10 +14,11 @@ fields int64. The padding buckets (_bucket) are kept: they make the
 arrays equal to the JAX package's, and a padded camera or point carries
 weight 0.
 
-Not ported: the block-sparse Schur tables of a problem too large for
-the dense layout (Pb·Cb > 8e6 with a representation other than
-"sparse"), which come with ba/schur_sparse.py in slice 6a; such a
-problem raises NotImplementedError.
+A problem too large for the dense layout (Pb·Cb > DENSE_MAX) gets the
+slot-table BAData only; with a representation other than "sparse" also
+the explicit block-sparse Schur tables (ba/schur_sparse.py, built on the
+host, timed as the `ba.block_schur_tables` phase), unless they would be
+too large, when the solver keeps its matrix-free PCG.
 """
 
 from __future__ import annotations
@@ -29,8 +30,10 @@ import torch
 
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.ba.dense import DenseBAData
+from mpsfm_tpu_torch.ba.schur_sparse import make_block_schur_tables, tables_to
 from mpsfm_tpu_torch.ba.solver import BAData, make_pc_tables, make_slot_tables
 from mpsfm_tpu_torch.scene.reconstruction import Reconstruction
+from mpsfm_tpu_torch.utils.profiling import TIMERS
 
 DENSE_MAX = 8_000_000  # Pb·Cb up to which the dense (C,P) layout is built
 
@@ -303,11 +306,6 @@ def build_ba_data(
     dense_ok = Pb * Cb <= DENSE_MAX
     want_dense = representation in ("both", "solve") and dense_ok
     want_sparse = representation in ("both", "sparse") or not dense_ok
-    if not dense_ok and representation != "sparse":
-        raise NotImplementedError(
-            f"build_ba_data: {Cb} cameras x {Pb} points exceed the dense layout (Pb·Cb > {DENSE_MAX}); the "
-            "block-sparse Schur tables (ba/schur_sparse.py) come with slice 6a"
-        )
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -351,6 +349,14 @@ def build_ba_data(
                     pc_d_slot=i64(pc_d_slot),
                     pc_d_mask=f32(pc_d_mask),
                 )
+        elif representation != "sparse":
+            # the large-scene single-device path: explicit block-sparse
+            # Schur structure (the distributed solver's "sparse" build
+            # partitions its own tables)
+            with TIMERS.phase("ba.block_schur_tables"):
+                bs = make_block_schur_tables(r_pt, r_cam, r_valid, d_pt, d_cam, d_valid, Pb, Cb)
+            if bs is not None:
+                pc = dict(bs=tables_to(bs, dev))
 
         data = BAData(
             **shared,

@@ -21,6 +21,7 @@ import torch
 
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.ba.dense import DenseBAData
+from mpsfm_tpu_torch.ba.schur_sparse import BlockSchurTables, tables_to
 from mpsfm_tpu_torch.ba.solver import BAData
 from mpsfm_tpu_torch.geometry.projection import Camera
 from mpsfm_tpu_torch.geometry.rotations import Rigid3d
@@ -41,12 +42,13 @@ def dense_ba_data(arrays: dict, device="cuda") -> DenseBAData:
 
 def ba_data(arrays: dict, device="cuda") -> BAData:
     """mpsfm_tpu.ba.solver.BAData fields -> BAData: float fields float32,
-    index fields (integer arrays) int64, absent optional tables None. The
-    block-sparse Schur tables (`bs`) are not ported: a problem that carries
-    them is refused."""
-    if arrays.get("bs") is not None:
-        raise ValueError("ba_data: the block-sparse Schur tables (bs) are not ported")
+    index fields (integer arrays) int64, absent optional tables None; the
+    block-sparse Schur tables `bs` (any object with BlockSchurTables'
+    fields, e.g. the JAX package's) by schur_sparse.tables_to."""
     dev = resolve_device(device)
+    bs = arrays.get("bs")
+    if bs is not None:
+        bs = tables_to(BlockSchurTables(*(getattr(bs, f) for f in BlockSchurTables._fields)), dev)
 
     def conv(a):
         if a is None:
@@ -56,7 +58,7 @@ def ba_data(arrays: dict, device="cuda") -> BAData:
             return torch.tensor(a.astype(np.int64), device=dev)
         return _f32(a, dev)
 
-    return BAData(**{f: conv(arrays.get(f)) for f in BAData._fields})
+    return BAData(**{f: conv(arrays.get(f)) for f in BAData._fields if f != "bs"}, bs=bs)
 
 
 def bini_inputs(arrays: dict, device="cuda") -> BiniInputs:

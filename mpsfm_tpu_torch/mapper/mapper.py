@@ -11,11 +11,11 @@ global pass. Host logic is the JAX package's, sequential and cheap; every
 numeric step runs on the mapper's device (the card unless the caller asks
 for the CPU): the RANSACs, the BiNI integration (K2), the int_covs
 propagation (K3), the point covariances (K1 many), the dense LM-Schur BA
-(K1) and the depth-consistency check.
+(K1; above the dense layout the sparse LM of ba/solver.py with its
+block-sparse Schur CG) and the depth-consistency check.
 
-Nothing falls back: a bundle above the dense BA layout raises in
-build_ba_data (the sparse solver is not ported), and so does a sharded
-dist_ba decision; the mapper catches neither.
+Nothing falls back: a sharded dist_ba decision raises (the distributed
+BA is not ported) and the mapper does not catch it.
 """
 
 from __future__ import annotations

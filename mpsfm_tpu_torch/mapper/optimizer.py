@@ -1,16 +1,19 @@
 """Optimizer facade: the reference Optimizer's public API
-(mpsfm/sfm/mapper/bundle_adjustment.py:18-333) over the port's LM core
-(port of mpsfm_tpu/mapper/optimizer.py, its dense path).
+(mpsfm/sfm/mapper/bundle_adjustment.py:18-333) over the port's LM cores
+(port of mpsfm_tpu/mapper/optimizer.py).
 
 Bundles whose dense (C,P) layout fits (ba/problem.py: Pb·Cb ≤ 8e6, 64
 cameras × 8192 points and every mapper bundle of that size) solve with
-ba/dense.solve_ba_dense, whose reduced system goes to K1 on the card.
+ba/dense.solve_ba_dense, whose reduced system goes to K1 on the card;
+larger ones with ba/solver.solve_ba over the slot-table BAData and its
+block-sparse Schur tables (ba/schur_sparse.py). `ba_fused` serves such a
+bundle as the JAX package does: it finalizes the deferred integration
+and int_covs (finalize_deferred_all), updates the truncation multiplier
+on the host when asked, rebuilds with the host depth rows and solves.
 The results the host needs are read with `.cpu()`; the JAX package packs
-them into one read for its TPU transport. Not ported, each raising
-NotImplementedError before anything is built or finalized: the sparse
-slot-table LM (`solve_ba`, slice 6a) for a bundle above the dense layout
-(build_ba_data refuses it), and the distributed BA over several cards
-(ROADMAP queue 1 item 5).
+them into one read for its TPU transport. Not ported, raising
+NotImplementedError before anything is built or finalized: the
+distributed BA over several cards (ROADMAP queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -29,8 +32,10 @@ from mpsfm_tpu_torch.ba.device_depth import build_depth_grids, sample_logd
 from mpsfm_tpu_torch.ba.problem import apply_ba_result, build_ba_data
 from mpsfm_tpu_torch.ba.shift_scale import optimize_prior_shiftscale as _shift_scale
 from mpsfm_tpu_torch.ba.shift_scale import update_truncation_multiplier as _trunc
+from mpsfm_tpu_torch.ba.solver import solve_ba
 from mpsfm_tpu_torch.config import BaseClass
 from mpsfm_tpu_torch.scene.image_priors import (
+    finalize_deferred_all,
     finalize_int_covs,
     finalize_integration,
     read_varlogs,
@@ -123,12 +128,15 @@ class Optimizer(BaseClass):
             )
 
     def _run_solve(self, prob, mode, depth_loss_name):
-        quat, t, xyz, info = solve_ba_dense(
-            prob.dense,
+        loss_kw = dict(
             reproj_loss=losses.LOSS_IDS[self.conf.reproj_loss_name],
             depth_loss=losses.LOSS_IDS[depth_loss_name],
             max_iters=self.conf.max_iters,
         )
+        if prob.dense is not None:
+            quat, t, xyz, info = solve_ba_dense(prob.dense, **loss_kw)
+        else:
+            quat, t, xyz, info = solve_ba(prob.data, cg_iters=self.conf.cg_iters, **loss_kw)
         cost0, cost, accepted = float(info["cost0"]), float(info["cost"]), int(info["accepted"])
         if not np.isfinite(cost):
             return None, False
@@ -158,10 +166,11 @@ class Optimizer(BaseClass):
         pending: integrate_bundle_deferred's finalize payload, finalized
         after the BA with its info rows; unc_overrides / pending_covs:
         int_covs_bundle_deferred's device variance rows and its payload.
-        The JAX package's fallback (finalize_deferred_all, then the host
-        depth rows) serves the layouts this port refuses: a sharded
-        decision raises here and a bundle above the dense layout in
-        build_ba_data, both before pending is touched."""
+        A bundle above the dense layout falls back as in the JAX package:
+        finalize_deferred_all(pending, pending_covs), the host truncation
+        multiplier when update_trunc, a rebuild with the host depth rows
+        and _run_solve (solve_ba). A sharded decision raises before
+        pending is touched."""
         depth_loss_name = (
             self.conf.ref3d_loss_name if fix_pose else self.conf.depth_loss_name
         )
@@ -171,6 +180,16 @@ class Optimizer(BaseClass):
                 bundle, mode, fix_pose, param_multiplier, allow_scale_filter,
                 depth_type, device_depth=True,
             )
+        if prob.dense is None:
+            # fallback: finalize the deferred integration, then the
+            # classic path with the host depth rows
+            finalize_deferred_all(pending, pending_covs)
+            if update_trunc:
+                with TIMERS.phase("truncation_multiplier"):
+                    self.update_truncation_multiplier(self.rec.reg_image_ids())
+            with TIMERS.phase("ba.build_data"):
+                prob = self._build(bundle, mode, fix_pose, param_multiplier, allow_scale_filter, depth_type)
+            return self._run_solve(prob, mode, depth_loss_name)
         specs = prob.depth_specs or {}
         dense = prob.dense
         dev = dense.quat.device

@@ -90,9 +90,17 @@ def test_ba_data_converts_types():
     t = convert.ba_data(_arrays(data), device="cpu")
     assert t.r_cam.dtype == t.r_pt.dtype == t.pc_r_slot.dtype == torch.int64
     assert t.xyz.dtype == t.pc_r_mask.dtype == torch.float32
-    assert set(BAData._fields) == set(data._fields) - {"bs"}
-    with pytest.raises(ValueError, match="not ported"):
-        convert.ba_data({**_arrays(data), "bs": np.zeros(1)}, device="cpu")
+    assert BAData._fields == data._fields and t.bs is None
+    # the block-sparse Schur tables (ported with the sparse solver) convert too
+    from __graft_entry__ import _synthetic_ba_data_sparse
+
+    sparse = _synthetic_ba_data_sparse(n_cams=8, n_pts=64, track_len=3)
+    t = convert.ba_data(sparse._asdict(), device="cpu")
+    for f in sparse.bs._fields:
+        for a, b in zip(*((x if isinstance(x, tuple) else (x,)) for x in (getattr(sparse.bs, f), getattr(t.bs, f)))):
+            a = np.asarray(a)
+            assert b.dtype == (torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32), f
+            np.testing.assert_array_equal(b.numpy(), a, err_msg=f)
 
 
 def test_point_covariance_matches_dense_inverse(rng):

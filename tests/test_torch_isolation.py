@@ -47,6 +47,7 @@ need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag"
         "mpsfm_tpu_torch.utils.profiling", "mpsfm_tpu_torch.native", "mpsfm_tpu_torch.scene.corrgraph",
         "mpsfm_tpu_torch.scene.reconstruction", "mpsfm_tpu_torch.scene.correspondences",
         "mpsfm_tpu_torch.scene.priors", "mpsfm_tpu_torch.ba.problem", "mpsfm_tpu_torch.ba.shift_scale",
+        "mpsfm_tpu_torch.ba.solver", "mpsfm_tpu_torch.ba.schur_sparse",
         "mpsfm_tpu_torch.mapper.optimizer", "mpsfm_tpu_torch.mapper.image_selection",
         "mpsfm_tpu_torch.mapper.triangulator", "mpsfm_tpu_torch.mapper.registration", "mpsfm_tpu_torch.mapper.mapper",
         "mpsfm_tpu_torch.utils.workqueue", "mpsfm_tpu_torch.utils.colmap_io", "mpsfm_tpu_torch.datasets.simple",

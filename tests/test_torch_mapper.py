@@ -13,7 +13,10 @@ unfused one); the port maps the same state carried across with
 ROADMAP.md's rules of the port ask: the same registered images in the same
 order, point counts within 5%, ATE below 0.05 in both (the bound of
 tests/test_mapper_e2e.py), and the uncertainty chain run in both (int_covs
-applied on some image, point covariances parked).
+applied on some image, point covariances parked). The port maps the same
+state a second time with every BA on the sparse path (DENSE_MAX at 0:
+solve_ba over the block-sparse Schur tables), held to the JAX package's
+dense run by the same decisions with points within 2%.
 
 Also: chip_smoke.py's numpy copy of PlaneScene builds the same scene as
 tests/synthetic.py; its mapping helpers map the small scene on the CPU;
@@ -31,8 +34,10 @@ import torch
 import chip_smoke
 from mpsfm_tpu.mapper import MpsfmMapper as JMapper
 from mpsfm_tpu.scene.correspondences import Correspondences as JCorr
+from mpsfm_tpu_torch.ba import problem as tproblem
 from mpsfm_tpu_torch.config import Config
 from mpsfm_tpu_torch.mapper import MpsfmMapper as TMapper
+from mpsfm_tpu_torch.mapper import optimizer as topt
 from mpsfm_tpu_torch.mapper import registration as treg
 from mpsfm_tpu_torch.scene.correspondences import Correspondences as TCorr
 
@@ -40,6 +45,7 @@ from synthetic import PlaneScene, ate_rmse
 from test_torch_registration import jax_draws, port_state
 
 ATE, POINTS_REL = 0.05, 0.05
+SPARSE_POINTS_REL = 0.02  # the sparse mapping's points against the JAX package's
 CONF = {"verbose": 0, "int_covs": True, "ba": {"max_iters": 8, "dist_ba": "off"}, "registration": {"num_hyp": 128}}
 
 
@@ -57,30 +63,57 @@ def summary(rec, mapper, gt):
 def mapped(request):
     """Both packages' runs on the dryrun scene, with the fused refinement
     (the default) and without (MPSFM_FUSED_REFINE=0: Optimizer.ba over
-    integrate_bundle_batched): (JAX summary, port summary)."""
+    integrate_bundle_batched), and the port's run from the same state with
+    DENSE_MAX at 0, so that every BA takes the sparse path (solve_ba on
+    the block-sparse Schur tables; ba_fused's fallback): (JAX summary,
+    port summary, sparse port summary)."""
     scene = PlaneScene(rng=np.random.default_rng(3), n_images=5, n_points=200)
     rj, keypoints, matches, gt = scene.build()
     cj = JCorr({"num_hyp": 128}, rj)
     cj.populate(keypoints, matches)
     rt, ct = port_state(rj, cj)
+    rs, cs = port_state(rj, cj)
+    threads = torch.get_num_threads()
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("MPSFM_FUSED_REFINE", request.param)
         mp.setattr(treg, "_draw", jax_draws)
-        mt = TMapper(CONF, rt, ct, device="cpu")
-        rt, ok_t = mt()
+        # the port on one intra-op thread (test_torch_image_priors.one_torch_thread)
+        torch.set_num_threads(1)
+        try:
+            mt = TMapper(CONF, rt, ct, device="cpu")
+            rt, ok_t = mt()
+            with pytest.MonkeyPatch.context() as sparse:
+                sparse.setattr(tproblem, "DENSE_MAX", 0)
+                sparse.setattr(topt, "solve_ba_dense", lambda *a, **k: pytest.fail("a dense BA in the sparse mapping"))
+                ms = TMapper(CONF, rs, cs, device="cpu")
+                rs, ok_s = ms()
+        finally:
+            torch.set_num_threads(threads)
         mj = JMapper(CONF, rj, cj)
         rj, ok_j = mj()
-    assert ok_t and ok_j
-    return summary(rj, mj, gt), summary(rt, mt, gt)
+    assert ok_t and ok_j and ok_s
+    return summary(rj, mj, gt), summary(rt, mt, gt), summary(rs, ms, gt)
 
 
 def test_mapper_matches_jax(mapped):
-    sj, st = mapped
+    sj, st, _ = mapped
     assert st["registered"] == sj["registered"] == 5
     assert st["order"] == sj["order"]
     assert abs(st["points"] - sj["points"]) <= POINTS_REL * sj["points"], (st["points"], sj["points"])
     assert st["ate"] < ATE and sj["ate"] < ATE, (st["ate"], sj["ate"])
     assert st["chain"] and sj["chain"]
+
+
+def test_sparse_mapping_matches_jax(mapped):
+    """The mapping with every BA above the (patched) dense layout against
+    the JAX package's dense one: the same registered images in the same
+    order, points within 2%, ATE below the bound, the chain run."""
+    sj, _, ss = mapped
+    assert ss["registered"] == sj["registered"] == 5
+    assert ss["order"] == sj["order"]
+    assert abs(ss["points"] - sj["points"]) <= SPARSE_POINTS_REL * sj["points"], (ss["points"], sj["points"])
+    assert ss["ate"] < ATE and sj["ate"] < ATE, (ss["ate"], sj["ate"])
+    assert ss["chain"]
 
 
 def test_mapper_refuses_priors_on_another_device():

@@ -158,15 +158,20 @@ def test_apply_ba_result_matches_jax(rng):
 
 
 def test_block_schur_branch_raises(rng, monkeypatch):
-    """A problem above the dense layout (Pb·Cb > DENSE_MAX) is refused
-    unless only the sparse tables are asked for (the covariance path)."""
+    """A problem above the dense layout (Pb·Cb > DENSE_MAX) no longer
+    raises: it gets the slot-table BAData without per-(point, camera)
+    tables, with the block-sparse Schur tables unless only the sparse
+    tables are asked for (the covariance path); a sharded decision still
+    raises (tests/test_torch_sparse_ba.py holds the tables to JAX's)."""
     rj, rt, _ = synthetic_pair(rng, n_cams=4, n_pts=60)
     monkeypatch.setattr(tproblem, "DENSE_MAX", 16)
-    for rep in ("both", "solve"):
-        with pytest.raises(NotImplementedError, match="slice 6a"):
-            tproblem.build_ba_data(rt, global_bundle(rt), representation=rep, device="cpu")
-    p = tproblem.build_ba_data(rt, global_bundle(rt), representation="sparse", device="cpu")
-    assert p.dense is None and p.data is not None and p.data.pc_r_slot is None
+    for rep in ("both", "solve", "sparse"):
+        p = tproblem.build_ba_data(rt, global_bundle(rt), representation=rep, device="cpu")
+        assert p.dense is None and p.data is not None and p.data.pc_r_slot is None
+        assert (p.data.bs is None) == (rep == "sparse")
+    monkeypatch.setattr(topt.Optimizer, "_use_dist_ba", lambda self, bundle, mode: 2)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        topt.Optimizer({}, rt, device="cpu").ba(global_bundle(rt))
 
 
 def test_entry_points_refuse_the_cpu_without_a_card(rng, monkeypatch):
@@ -369,9 +374,10 @@ def test_port_depth_priors_fix_scale_drift(rng):
 
 
 def test_unported_solvers_raise(rng, monkeypatch):
-    """A bundle above the dense layout (solve_ba, slice 6a) and a sharded
-    solve (ROADMAP queue 1 item 5) raise from every BA entry point before
-    the reconstruction changes; neither falls back."""
+    """A sharded solve (ROADMAP queue 1 item 5) raises from every BA entry
+    point before the reconstruction changes and does not fall back. A
+    bundle above the dense layout is no longer refused: every entry point
+    solves it with solve_ba (the sparse solver, ported)."""
     _, rt, _ = synthetic_pair(rng, n_cams=3, n_pts=30)
     opt = topt.Optimizer({}, rt, device="cpu")
     bundle = global_bundle(rt)
@@ -380,9 +386,11 @@ def test_unported_solvers_raise(rng, monkeypatch):
              lambda: opt.refine_3d_points(bundle))
     with monkeypatch.context() as m:
         m.setattr(tproblem, "DENSE_MAX", 16)
+        m.setattr(topt, "solve_ba_dense", lambda *a, **k: pytest.fail("dense solve above the dense layout"))
         for call in calls:
-            with pytest.raises(NotImplementedError, match="slice 6a"):
-                call()
+            info, ok = call()
+            assert ok and info["cost"] <= info["cost0"]
+    rt.xyz[:] = before
     assert opt._use_dist_ba(bundle, "global") == 0  # one device
     assert topt.Optimizer({"dist_ba": "on"}, rt, device="cpu")._use_dist_ba(bundle, "global") == 0
     monkeypatch.setattr(topt.Optimizer, "_use_dist_ba", lambda self, bundle, mode: 2)
