@@ -160,11 +160,12 @@
    iteration), 20 LM iterations against solve_ba_dense (t within 5e-3,
    xyz within 2e-2, costs within 5%), K1 held to its plain version on the
    last reduced system; then the large route: a Reconstruction of the
-   JAX package's 500+ image BA bench (512 images × 131 072 points seen by
-   6 consecutive cameras of a sweep, 0.5 px noise, poses perturbed) with
-   ImagePriors on 8 images at 290×387, through run_scene_refinement once
-   to warm up and once on a fresh scene with the launch counts at 0:
-   point covariances at K = 3072 (K1 many), the global step whose
+   JAX package's 500+ image BA bench's sweep (points seen by 6
+   consecutive cameras, 0.5 px noise, poses perturbed), cut to 128 images
+   × 65 536 points, with ImagePriors on 8 images at 290×387, through
+   run_scene_refinement once with the launch counts at 0 (no warm-up run
+   of its own since the distributed BA phase came): point covariances at
+   K = 768 (K1 many), the global step whose
    ba_fused falls back to solve_ba on the block-sparse Schur tables, the
    local step (dense, K1), refine_3d_points. Held: covariances finite,
    symmetric, positive definite; each BA's cost below its start; the
@@ -178,6 +179,25 @@
    test_block_schur_full_solve_parity's bundle (16 × 1024) solved with the
    block-sparse tables on the card and on the CPU and matrix-free on the
    card: final costs within 2% + 1e-3.
+12. The distributed BA (slice 9), in worker processes of this script
+   (`--dist-worker`; the main process never holds a process group, and
+   every worker is waited for or killed): (a) on a world-size-1 NCCL
+   group, solve_ba_block_sharded on the full-width sweep (512 × 131 072,
+   the block-Schur route) against solve_ba on the same data: cost0
+   within 1e-5 relative, the final costs within 1e-3 and at or below the
+   cost at the truth, the same steps taken and refused by both over the
+   first two (the sweep's cost then sits at float32's resolution); (b)
+   two gloo ranks sharing the card (NCCL refuses two ranks on one card)
+   on the bench bundle, the block-Schur and the dense-T route
+   (MPSFM_DIST_BS=0): the ranks bit-identical, against solve_ba at
+   tests/test_parallel.py's bounds (cost0 1e-5, cost 1e-3, quat 1e-5,
+   xyz 1e-3), K1 launched every step of the dense-T route and held to
+   its plain version at its reduced system (K = 384); (c) on the same
+   two ranks the twin of tests/multihost_mapper_worker.py (the 5-image
+   PlaneScene, dist_ba on): the same decisions and bit-identical poses
+   on both ranks, sharded BAs, and the same decisions as one process
+   with dist_ba off. Printed: wall times, all-reduces and bytes per LM
+   step. Neither group is a multi-card measurement.
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -188,7 +208,8 @@ scores), the consistent scene's two scores, the estimators' times and
 checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
 own), the mapping phase's lines and launches, the pipeline phase's lines
-and launches, the sparse BA phase's lines and launches, a `{"kernels": [...]}` line, and last
+and launches, the sparse BA phase's lines and launches, the distributed BA's lines and launches, a
+`{"kernels": [...]}` line (K1 a second time, at the distributed BA's dense-T route), and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -2740,6 +2761,9 @@ PIPELINE_ATE, KP_MATCH_PX, KP_COMMON, DESC_TOL = MAPPING_ATE, 1e-2, 0.99, 1e-4
 # ATE 0.002752, 4682 points; the JAX package on the CPU over the same render: 8/8, 0.005206, 4683): a map
 # several times worse fails (the first bounds were >= 11 of 12 images and ATE < 0.05)
 PIPELINE_FULL_BOUNDS = (8, 0.02, 4200)
+# images of the pipeline phase's warm-up run: an init pair and one registration run every stage on the
+# card at the phase's image size (cut from all 8 to keep the script near 400 s with the distributed BA phase)
+PIPELINE_WARM_IMAGES = 3
 
 
 def png_gray(img):
@@ -2936,7 +2960,8 @@ def pipeline_phase(dev, counted):
     """The port's reconstruct on the card over a rendered RGB-D directory
     (PIPELINE: the mapping phase's geometry, 8 PNG images of 640×480, .npy
     depth, JSON intrinsics) under the main path's conf: a warm-up run on a
-    copy of the directory, then the measured run with the launch counts
+    copy of the directory's first PIPELINE_WARM_IMAGES images (every stage,
+    at the same image size), then the measured run with the launch counts
     set to 0 just before. Holds: features, matches, populate and the mapper
     on the card, each kernel launched, PIPELINE_FULL_BOUNDS (registered
     images, ATE, points), the written text model equal to the map, and
@@ -2962,6 +2987,9 @@ def pipeline_phase(dev, counted):
             read_image(path, grayscale=True)
         decode_s = (time.perf_counter() - t) / cfg["n_images"]
         shutil.copytree(Path(tmp) / "scene", Path(tmp) / "warm")
+        for i in range(PIPELINE_WARM_IMAGES, cfg["n_images"]):  # the warm-up maps the first images only
+            (Path(tmp) / "warm" / "images" / f"im{i:02d}.png").unlink()
+            (Path(tmp) / "warm" / "depth" / f"im{i:02d}.npy").unlink()
         _, _, warm_s = run_pipeline(Path(tmp) / "warm", PIPELINE_CONF, dev)
         TIMERS.reset()
         for k in counted.values():
@@ -2976,7 +3004,8 @@ def pipeline_phase(dev, counted):
                ate=ate, wall=wall, frames_per_s=rec.num_images() / wall, pipe=pipe, devices=seen)
     print(f"pipeline scene: {cfg['n_images']} PNG images {cfg['img_wh'][0]}x{cfg['img_wh'][1]} (focal {cfg['focal']}, "
           f"baseline {cfg['baseline']}, wedge; Paeth-filtered rows), .npy depth, JSON intrinsics; rendered in "
-          f"{render_s:.3f} s; PNG decode on the host {decode_s * 1e3:.3f} ms an image; warm-up run {warm_s:.3f} s wall")
+          f"{render_s:.3f} s; PNG decode on the host {decode_s * 1e3:.3f} ms an image; warm-up run ({PIPELINE_WARM_IMAGES} "
+          f"images) {warm_s:.3f} s wall")
     print(f"pipeline: {wall:.3f} s wall, {out['frames_per_s']:.4f} frames/s; registered {out['registered']}/"
           f"{out['images']} (bound {min_reg}); {out['points']} points (bound {min_points}); ATE {ate:.6f} (bound "
           f"{ate_bound}); written model read back, pose gap {gap:.2e}; devices {json.dumps({k: sorted(v) for k, v in seen.items()})}; "
@@ -3388,8 +3417,10 @@ def sparse_large_route(dev, counted, size=SPARSE_ROUTE):
     the global step (integration (K2), int_covs (K3), ba_fused falling
     back to finalize_deferred_all, the host depth rows and solve_ba on the
     block-sparse Schur tables), the local step (dense: K1) and
-    refine_3d_points (the same fallback, poses fixed); once to warm up,
-    then on a fresh scene with the launch counts at 0. Checks
+    refine_3d_points (the same fallback, poses fixed), with the launch
+    counts at 0. No warm-up run of its own (cut to keep the script near
+    400 s): the scene refinement, mapping and pipeline phases before it
+    ran these entry points on the card. Checks
     (check_sparse_refinement), the truth's errors before and after, one
     wall line per entry point, build_ba_data's host time with
     make_block_schur_tables apart, the peak device memory, launches; on the
@@ -3407,13 +3438,8 @@ def sparse_large_route(dev, counted, size=SPARSE_ROUTE):
     t = time.perf_counter()
     rec, pris = sparse_reconstruction(sc, size["B"], size["H"], size["W"], dev)
     build_s = time.perf_counter() - t
-    run_scene_refinement(rec, pris, dev)  # warm-up
-    del rec, pris
-    gc.collect()
     if dev.type == "cuda":
-        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    rec, pris = sparse_reconstruction(sc, size["B"], size["H"], size["W"], dev)
     before = sparse_errors(rec, sc)
     for k in counted.values():
         k.launches = 0
@@ -3627,6 +3653,376 @@ def sparse_ba_phase(dev, counted):
     return out, {"large route": large, "full width": full}
 
 
+# ---- the distributed BA (slice 9): parallel/ over torch.distributed, in worker processes ----
+
+# LM iterations at rel_tol 0 of (a), the full-width sweep, and of (b), the bench bundle, at
+# tests/test_parallel.py's bounds. (a) converges in DIST_DECIDED steps (9.39e6 -> 275 035 on the card);
+# after them the cost sits at float32's resolution of it (1e-7), where the order of the sums decides
+# whether a step is taken (H100: the sharded solve took [1, 1, 0, 1, 1], solve_ba [1, 1, 1, 1, 0]), so
+# the decisions are held over the first DIST_DECIDED steps
+DIST_FULL_ITERS, DIST_BENCH_ITERS, DIST_DECIDED = 5, 10, 2
+# (c), the twin of tests/multihost_mapper_worker.py: its PlaneScene (MappingScene: seed 3, 5 images ×
+# 120 points) and mapper conf, the global BAs sharded over the ranks whatever their size
+DIST_MAPPER = dict(seed=3, n_images=5, n_points=120, num_hyp=64)
+DIST_MAPPER_CONF = {"verbose": 0, "ba": {"max_iters": 6, "dist_ba": "on"}, "registration": {"num_hyp": 64}}
+DIST_WORKER_TIMEOUT = 300  # seconds a job's ranks may take; a rank stuck in a collective fails the phase
+# the bundles of (a) and (b): on the card, and for a rehearsal of the phase on the CPU
+DIST_SIZES = {"full": (SPARSE, FULL), "small": (SPARSE_SMALL, SMALL)}
+
+
+def k1_row(S, rhs, what):
+    """K1 held to its plain version on (S, rhs) (k1_check, K1_REL[0.01]), timed
+    beside the plain version and the library call, with its bound: a row of the
+    kernels line, and the line to print ("line")."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    _, err, line = k1_check(S, rhs, K1_REL[0.01], what)
+    K = S.shape[0]
+    if not S.is_cuda:  # a rehearsal on the CPU: the plain version against itself, no time
+        return dict(err=err, line=line)
+    ms = cuda_ms(lambda: cholesky.cholesky_solve(S, rhs), 20)
+    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, rhs), 2)
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(rhs[:, None], torch.linalg.cholesky(S)), 20)
+    flops, nbytes = K ** 3 / 3 + 2 * K * K, 4 * (K * K + 2 * K)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=flops / PEAK_F32 * 1e3,
+                bytes_ms=nbytes / PEAK_BYTES * 1e3,
+                line=f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms")
+
+
+def mapper_decisions(rec, ok, mapper):
+    """What ranks that map replicated must agree on: the registered images
+    and their order, points per image and in all, poses (as float lists, so
+    equal means bit for bit), and how many BAs ran sharded."""
+    reg_ids = sorted(int(i) for i, im in rec.images.items() if im.registered)
+    return {
+        "ok": bool(ok), "registered": reg_ids,
+        "order": [int(i) for i in mapper.nextview.registration_order if i is not None],
+        "dist_solves": int(mapper.optimizer.dist_solves),
+        "points_per_image": {str(i): int(rec.images[i].num_points3D()) for i in reg_ids},
+        "num_points3D": int(rec.num_points3D()),
+        "poses": {str(i): np.concatenate([rec.images[i].pose.q, rec.images[i].pose.t]).tolist() for i in reg_ids},
+    }
+
+
+def run_dist_mapper(dev, dist_ba, shards=0):
+    """MpsfmMapper on `dev` over DIST_MAPPER's scene with DIST_MAPPER_CONF
+    (dist_ba and dist_ba_shards set). Returns (mapper_decisions, wall s, ATE)."""
+    import torch
+
+    from mpsfm_tpu_torch.mapper import MpsfmMapper
+
+    dev = torch.device(dev)
+    rec, corr, truth, _, _ = mapping_state(dev, **DIST_MAPPER)
+    conf = {**DIST_MAPPER_CONF, "ba": {**DIST_MAPPER_CONF["ba"], "dist_ba": dist_ba, "dist_ba_shards": shards}}
+    mapper = MpsfmMapper(conf, rec, corr, device=dev)
+    t = time.perf_counter()
+    rec, ok = mapper()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t
+    ate = ate_rmse(rec, truth["poses"]) if rec.num_reg_images() >= 3 else float("inf")
+    return mapper_decisions(rec, ok, mapper), wall, ate
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_solve(parts, dev, iters, warm=True):
+    """solve_ba_block_sharded over the default group at rel_tol 0, timed
+    (after a one-iteration warm-up): (quat, t, the gathered point blocks,
+    info with K1's launches in the timed solve, wall s), as numpy."""
+    from mpsfm_tpu_torch.ba import cholesky
+    from mpsfm_tpu_torch.parallel import dist_ba
+
+    group = dist_ba.make_group()
+    if warm:
+        dist_ba.solve_ba_block_sharded(parts, group, max_iters=1, rel_tol=0.0, device=dev)
+    n0 = cholesky.KERNEL.launches
+    sync(dev)
+    t = time.perf_counter()
+    q, tt, x, info = dist_ba.solve_ba_block_sharded(parts, group, max_iters=iters, rel_tol=0.0, device=dev)
+    info["cost"], info["cost0"] = float(info["cost"]), float(info["cost0"])
+    wall = time.perf_counter() - t
+    info["cost_history"] = info["cost_history"].cpu().numpy()
+    info["k1_launches"] = cholesky.KERNEL.launches - n0
+    return q.cpu().numpy(), tt.cpu().numpy(), dist_ba.all_gather_points(x, group).cpu().numpy(), info, wall
+
+
+def solve_ba_reference(data, dev, iters):
+    """The port's solve_ba on one device, rel_tol 0, timed after a warm-up."""
+    from mpsfm_tpu_torch.ba import solver
+
+    solver.solve_ba(data, max_iters=1, rel_tol=0.0)
+    sync(dev)
+    t = time.perf_counter()
+    q, tt, x, info = solver.solve_ba(data, max_iters=iters, rel_tol=0.0)
+    cost = float(info["cost"])
+    return dict(quat=q.cpu().numpy(), t=tt.cpu().numpy(), xyz=x.cpu().numpy(), cost0=float(info["cost0"]),
+                cost=cost, accepted=info["accepted"], wall=time.perf_counter() - t,
+                cost_history=info["cost_history"].cpu().numpy())
+
+
+def dist_job_full(dev, rank, size):
+    """(a) On a world-size-1 NCCL group: solve_ba_block_sharded on the
+    full-width sweep (SPARSE: 512 × 131 072, the numpy copy of
+    _synthetic_ba_data_sparse, the block-Schur route), and the port's
+    solve_ba (its block-Schur tables) on the same data; the cost at the
+    truth with the BA's losses."""
+    import torch
+
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.ba import losses, solver
+    from mpsfm_tpu_torch.parallel import dist_ba
+
+    sc = sparse_scene(**DIST_SIZES[size][0])
+    arrays = sparse_ba_arrays(sc)
+    t = time.perf_counter()
+    parts, pids = dist_ba.partition_ba_data(SimpleNamespace(**arrays), 1)
+    part_s = time.perf_counter() - t
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    q, tt, x, info, wall = dist_solve(parts, dev, DIST_FULL_ITERS)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if dev.type == "cuda" else float("nan")
+    del parts
+    data = convert.ba_data({**arrays, "bs": sparse_tables(arrays)}, device=dev)
+    ref = solve_ba_reference(data, dev, DIST_FULL_ITERS)
+    truth = float(solver._cost_only(data, *(torch.as_tensor(a, device=dev) for a in (sc.quat, sc.t, sc.pts)),
+                                    losses.SOFT_L1, losses.CAUCHY))
+    return dict(info=info, wall=wall, partition_s=part_s, peak=peak,
+                backend=torch.distributed.get_backend(),
+                ref={k: v for k, v in ref.items() if k not in ("quat", "t", "xyz")}, truth=truth,
+                n_bs_buckets=len(data.bs.con_a), P=sc.pts.shape[0], C=sc.quat.shape[0])
+
+
+def dist_job_pair(dev, rank, size):
+    """(b) and (c) on one of two gloo ranks sharing the card. (b): the
+    bench bundle (64 × 8192) partitioned over the two ranks on the
+    block-Schur and on the dense-T route (MPSFM_DIST_BS=0), each solved
+    with the K1 launches counted around it; rank 0 keeps the dense-T
+    route's last reduced system (for K1 against its plain version) and
+    solves the bundle with solve_ba. (c): the mapper twin with dist_ba on,
+    the kernel launches counted around it."""
+    import os
+
+    from mpsfm_tpu_torch import convert, kernels
+    from mpsfm_tpu_torch.ba import solver
+    from mpsfm_tpu_torch.parallel import dist_ba
+
+    bench = DIST_SIZES[size][1]
+    arrays = ba_arrays(synthetic_bundle(bench["n_cams"], bench["n_pts"]))
+    out = {"routes": {}, "bench": (bench["n_cams"], bench["n_pts"])}
+    for route, flag in (("block-Schur", "1"), ("dense-T", "0")):
+        os.environ["MPSFM_DIST_BS"] = flag
+        try:
+            t = time.perf_counter()
+            parts, pids = dist_ba.partition_ba_data(SimpleNamespace(**arrays), 2)
+            part_s = time.perf_counter() - t
+        finally:
+            del os.environ["MPSFM_DIST_BS"]
+        with last_call(solver, "cholesky_solve", lambda a, o: float(a[1].abs().max())) as kept:
+            q, tt, x, info, wall = dist_solve(parts, dev, DIST_BENCH_ITERS)
+        out["routes"][route] = dict(quat=q, t=tt, xyz=dist_ba.unpartition_points(x, pids, arrays["xyz"].shape[0]),
+                                    info=info, wall=wall, partition_s=part_s, k1_launches=info["k1_launches"],
+                                    tables="n_bs_buckets" in parts)
+        if route == "dense-T" and rank == 0:
+            S, rhs = kept["args"]
+            out["k1"] = k1_row(S, rhs, f"K1 at the sharded dense-T route's reduced system with the largest "
+                                       f"right-hand side (K={S.shape[0]})")
+    if rank == 0:
+        out["single"] = solve_ba_reference(convert.ba_data(arrays, device=dev), dev, DIST_BENCH_ITERS)
+    counted = kernels.all_kernels()
+    for k in counted:
+        k.launches = 0
+    decisions, wall, ate = run_dist_mapper(dev, "on", 2)
+    out["mapper"] = dict(decisions, wall=wall, ate=ate, launches={k.name: k.launches for k in counted})
+    return out
+
+
+def dist_worker(job, rank, world, port, outdir, device, size):
+    """`chip_smoke.py --dist-worker <job> <rank> <world> <port> <dir>
+    <device> <size>`: one rank of the distributed BA phase on `device`
+    (cuda:0; cpu for a rehearsal at DIST_SIZES["small"]). Job "full" is (a)
+    on a world-size-1 group, NCCL on the card; job "pair" is (b) and (c) on
+    one of two gloo ranks sharing the device (NCCL refuses two ranks on one
+    card; gloo sums CUDA tensors through the host). Pickles its results
+    into <dir>/<job><rank>.pkl; a failure exits non-zero."""
+    import os
+    import pickle
+
+    import torch
+
+    from mpsfm_tpu_torch.parallel import multihost
+
+    rank, world = int(rank), int(world)
+    dev = torch.device(device)
+    # job "full" takes the device's backend (NCCL on a card), "pair" gloo
+    multihost.initialize_multihost(f"tcp://localhost:{port}", world, rank, device=dev,
+                                   backend=None if job == "full" else "gloo")
+    try:
+        out = (dist_job_full if job == "full" else dist_job_pair)(dev, rank, size)
+    finally:
+        torch.distributed.destroy_process_group()
+    with open(os.path.join(outdir, f"{job}{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def run_dist_workers(job, world, outdir, device, size):
+    """Starts `world` ranks of `job` (dist_worker), waits for all of them
+    (DIST_WORKER_TIMEOUT; every rank is killed before this returns or
+    raises) and returns their results in rank order; a rank that fails
+    fails the phase with its output."""
+    import os
+    import pickle
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # the host's cores shared out over the ranks (unless the caller set it): each rank's torch would
+    # otherwise take them all, and ranks that wait on each other in collectives then crawl
+    env = {**os.environ, "OMP_NUM_THREADS": os.environ.get("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // world)))}
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker", job, str(r), str(world),
+                               str(port), outdir, str(device), size], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DIST_WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"distributed BA phase, job {job}: rank {r} exited {p.returncode}:\n{o[-4000:]}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"{job}{r}.pkl"), "rb") as f:
+            res.append(pickle.load(f))
+    return res
+
+
+def taken(cost0, hist):
+    """Which LM steps were taken (the cost history moved), as 0/1."""
+    return (np.diff(np.concatenate([[cost0], hist])) < 0).astype(int).tolist()
+
+
+def check_dist_full(full, job_wall):
+    """(a)'s checks: cost0 of the sharded solve and of solve_ba within 1e-5
+    relative, the final costs within 1e-3 of each other
+    (test_block_sharded_ba_matches_single_device's bounds) and both at or
+    below the cost at the truth, and the same decisions (the same steps
+    taken and refused by both over the first DIST_DECIDED)."""
+    info, ref, iters = full["info"], full["ref"], DIST_FULL_ITERS
+    steps, ref_steps = taken(info["cost0"], info["cost_history"]), taken(ref["cost0"], ref["cost_history"])
+    line = (f"distributed BA (a), full width on a world-size-1 {full['backend']} group (one rank: not a multi-card time): "
+            f"{full['C']} images x {full['P']} points, block-Schur route ({full['n_bs_buckets']} buckets in solve_ba's "
+            f"tables); partition_ba_data {full['partition_s']:.3f} s; solve_ba_block_sharded {iters} LM iterations in "
+            f"{full['wall']:.4f} s ({iters / full['wall']:.3f} LM iterations/s), cost {info['cost0']:.6g} -> "
+            f"{info['cost']:.6g} (steps taken {steps}), {info['all_reduces']} all-reduces, "
+            f"{info['all_reduce_bytes'] / info['steps']:.0f} bytes per LM step, peak device memory {full['peak']:.2f} "
+            f"GiB; solve_ba {ref['wall']:.4f} s ({iters / ref['wall']:.3f} LM iterations/s), cost {ref['cost0']:.6g} -> "
+            f"{ref['cost']:.6g} (steps taken {ref_steps}); cost at the truth {full['truth']:.6g}; job {job_wall:.3f} s "
+            f"wall with the process start")
+    print(line)
+    if not (abs(info["cost0"] - ref["cost0"]) <= 1e-5 * ref["cost0"] and info["cost"] <= full["truth"]
+            and ref["cost"] <= full["truth"] and abs(info["cost"] - ref["cost"]) <= 1e-3 * ref["cost"]
+            and steps[:DIST_DECIDED] == ref_steps[:DIST_DECIDED] and sum(steps) >= 1):
+        raise AssertionError(line)
+
+
+def check_dist_pair(ranks, job_wall, dev):
+    """(b)'s checks on each route: the two ranks' results bit for bit; the
+    route taken (block-Schur tables, or the dense T with K1 launched every
+    step on both ranks on the card); against solve_ba at
+    tests/test_parallel.py::test_block_sharded_ba_matches_single_device's
+    bounds. Returns K1's launches on the dense-T route (rank 0)."""
+    single = ranks[0]["single"]
+    for route in ("block-Schur", "dense-T"):
+        a, b = (r["routes"][route] for r in ranks)
+        info = a["info"]
+        same = all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in ("quat", "t", "xyz")) and all(
+            np.array_equal(np.asarray(a["info"][k]), np.asarray(b["info"][k])) for k in ("cost0", "cost", "cost_history"))
+        gaps = dict(cost0=abs(info["cost0"] - single["cost0"]) / single["cost0"],
+                    cost=abs(info["cost"] - single["cost"]) / single["cost"],
+                    quat=float(np.abs(a["quat"] - single["quat"]).max()),
+                    xyz=float(np.abs(a["xyz"] - single["xyz"]).max()))
+        line = (f"distributed BA (b), two gloo ranks on one card (not a multi-card time), bench bundle "
+                f"({' x '.join(map(str, ranks[0]['bench']))}), {route} route: partition_ba_data {a['partition_s']:.3f} s; "
+                f"{DIST_BENCH_ITERS} LM iterations in {a['wall']:.4f} / {b['wall']:.4f} s (ranks 0 / 1), cost "
+                f"{info['cost0']:.6g} -> {info['cost']:.6g} ({info['accepted']} accepted), {info['all_reduces']} "
+                f"all-reduces, {info['all_reduce_bytes'] / info['steps']:.0f} bytes per LM step, K1 launches "
+                f"{a['k1_launches']} / {b['k1_launches']}; ranks bit-identical {same}; against solve_ba "
+                f"({single['wall']:.4f} s): cost0 {gaps['cost0']:.2e} (bound 1e-5), cost {gaps['cost']:.2e} (1e-3), "
+                f"quat {gaps['quat']:.2e} (1e-5), xyz {gaps['xyz']:.2e} (1e-3)")
+        print(line)
+        dense = route == "dense-T"
+        if not (same and a["tables"] != dense and gaps["cost0"] <= 1e-5 and gaps["cost"] <= 1e-3
+                and gaps["quat"] <= 1e-5 and gaps["xyz"] <= 1e-3
+                and a["k1_launches"] == b["k1_launches"] == (info["steps"] if dense and dev.type == "cuda" else 0)):
+            raise AssertionError(line)
+    print(f"distributed BA (b): job {job_wall:.3f} s wall with the process start and (c)")
+    return ranks[0]["routes"]["dense-T"]["k1_launches"]
+
+
+def check_dist_mapper(ranks, dev):
+    """(c)'s checks: both ranks mapped, with a sharded BA, the same
+    decisions (registered images and order, points per image and in all,
+    poses bit for bit); against one process with dist_ba off on the card:
+    the same images in the same order, points within max(3, 2%)
+    (tests/test_parallel.py::test_mapper_e2e_with_distributed_ba)."""
+    v0, v1 = (r["mapper"] for r in ranks)
+    one, wall, ate = run_dist_mapper(dev, "off")
+    keys = ("ok", "registered", "order", "points_per_image", "num_points3D", "poses")
+    same = all(v0[k] == v1[k] for k in keys)
+    line = (f"distributed BA (c), the mapper on two gloo ranks on one card, dist_ba on ({DIST_MAPPER['n_images']} "
+            f"images x {DIST_MAPPER['n_points']} points, seed {DIST_MAPPER['seed']}): order {v0['order']} / "
+            f"{v1['order']}, points {v0['num_points3D']} / {v1['num_points3D']}, {v0['dist_solves']} sharded BAs, "
+            f"ranks identical (poses bit for bit) {same}, wall {v0['wall']:.3f} / {v1['wall']:.3f} s, ATE "
+            f"{v0['ate']:.5f}, launches {json.dumps(v0['launches'])}; one process, dist_ba off: order {one['order']}, "
+            f"points {one['num_points3D']}, wall {wall:.3f} s, ATE {ate:.5f}")
+    print(line)
+    if not (same and v0["ok"] and v0["dist_solves"] > 0 and len(v0["registered"]) == DIST_MAPPER["n_images"]
+            and one["order"] == v0["order"] and one["registered"] == v0["registered"] and one["dist_solves"] == 0
+            and abs(one["num_points3D"] - v0["num_points3D"]) <= max(3, 0.02 * one["num_points3D"])):
+        raise AssertionError(line)
+
+
+def dist_ba_phase(dev, size="full"):
+    """Slice 9, the distributed BA, in worker processes of this script (the
+    main process never holds a process group): (a) on a world-size-1 NCCL
+    group, solve_ba_block_sharded at full width against solve_ba; (b) two
+    gloo ranks sharing the card on the bench bundle, both routes, with K1
+    held to its plain version at the dense-T route's reduced system; (c)
+    the mapper twin of tests/multihost_mapper_worker.py on the same two
+    ranks, against one process. Neither (a) nor (b, c) is a multi-card
+    measurement. Returns (K1's row at the sharded dense-T route, its
+    launches there, the mapper's launches on rank 0)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        (full,) = run_dist_workers("full", 1, tmp, dev, size)
+        full_wall = time.perf_counter() - t
+        t = time.perf_counter()
+        pair = run_dist_workers("pair", 2, tmp, dev, size)
+        pair_wall = time.perf_counter() - t
+    check_dist_full(full, full_wall)
+    k1_launches = check_dist_pair(pair, pair_wall, dev)
+    print(f"distributed BA (b), rank 0: {pair[0]['k1']['line']}")
+    check_dist_mapper(pair, dev)
+    return pair[0]["k1"], k1_launches, pair[0]["mapper"]["launches"]
+
+
 def profile_slice(inputs, dev, top=12):
     """Device time of one main-path run by kernel (torch.profiler), and the
     device's busy share of the run's wall time."""
@@ -3665,6 +4061,8 @@ def card_line():
 def main():
     import torch
 
+    if sys.argv[1:2] == ["--dist-worker"]:  # a rank of dist_ba_phase, on the device it names
+        return dist_worker(*sys.argv[2:9])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
@@ -3731,6 +4129,7 @@ def main():
     _, pipeline_launches = pipeline_phase(dev, counted)
     pipeline_card_vs_cpu(dev)
     _, sparse_launches = sparse_ba_phase(dev, counted)
+    dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 
@@ -3746,6 +4145,9 @@ def main():
         # no TPU kernel: on the JAX path _diag_inverse_at_impl runs as XLA ops
         ("bini_diag_pcg", "mpsfm_tpu_torch/csrc/bini_diag.cu", "mpsfm_tpu/integration/bini.py:592",
          k3, launches["bini_diag"]),
+        # K1 on the distributed BA's dense-T route (rank 0 of two): its own path's launches and shape
+        ("cholesky_solve (sharded dense-T route)", "mpsfm_tpu_torch/csrc/cholesky.cu",
+         "mpsfm_tpu/ba/pallas_cholesky.py:25", dist_k1, dist_k1_launches),
     ):
         bound = max(k["ops_ms"], k["bytes_ms"])
         rows.append(dict(
@@ -3759,6 +4161,8 @@ def main():
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")
     print(f"sparse BA launches: {json.dumps(sparse_launches)}")
+    print(f"distributed BA launches: K1 {dist_k1_launches} on the dense-T route; the mapper on rank 0 "
+          f"{json.dumps(dist_mapper_launches)}")
     print(f"total: {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

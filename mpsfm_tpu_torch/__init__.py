@@ -11,7 +11,8 @@ Optimizer), the geometry and robust estimators, and the mapper's
 control loop over them (MpsfmMapper: registration, triangulation,
 next-view selection, the depth-consistency checker), which maps a scene;
 and the main path from images (pipeline.reconstruct, cli), which maps an
-RGB-D directory.
+RGB-D directory; with several ranks of a process group (one process a
+card) the large global BAs are sharded over them.
 
 Layout (each module mirrors its counterpart in mpsfm_tpu/):
   geometry/rotations.py     quaternion / SE(3) math
@@ -60,10 +61,13 @@ Layout (each module mirrors its counterpart in mpsfm_tpu/):
   pipeline.py, cli.py, eval.py
                             reconstruct from a directory, its command line, ATE
   kernels.py                nvcc build + ctypes loader for csrc/*.cu
+  parallel/                 the distributed BA (points sharded over the
+                            ranks of a torch.distributed group), process
+                            groups, sharded batched inference
   convert.py                JAX-package state (numpy) -> port tensors:
                             BA data, BiNI inputs, cameras, poses, DC
                             inputs, the Reconstruction, ImagePriors,
-                            Correspondences
+                            Correspondences, a distributed BA's partition
 
 Precision policy: everything is float32 with TF32 off for matmuls and
 cuDNN, the counterpart of the JAX package's forced "highest" matmul

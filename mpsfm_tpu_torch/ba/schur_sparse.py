@@ -32,8 +32,9 @@ iteration count as the early exit, for one host sync per READ_EVERY
 iterations instead of one per iteration (up to 64 per LM step), at the
 price of at most READ_EVERY − 1 masked iterations after convergence.
 
-Not ported here: `make_block_schur_tables_sharded`, the per-shard tables
-of the distributed BA; it comes with that slice (ROADMAP queue 1 item 5).
+`make_block_schur_tables_sharded` builds the same tables per point shard
+of the distributed BA (parallel/dist_ba.py) against one global block
+adjacency, so that the all-reduced shard blocks equal the single-device G.
 """
 
 from __future__ import annotations
@@ -229,6 +230,181 @@ def make_block_schur_tables(
         cam_slots=cam_slots.reshape(num_cams, Rc),
         cam_mask=cam_mask.reshape(num_cams, Rc),
     )
+
+
+def make_block_schur_tables_sharded(shard_obs, num_points_local, num_cams,
+                                    max_pair_elems: int = 256_000_000,
+                                    max_block_elems: int = 64_000_000):
+    """Per-shard BlockSchurTables with a GLOBAL block adjacency.
+
+    ``shard_obs``: list (one per shard) of dicts with keys r_pt, r_cam,
+    r_valid, d_pt, d_cam, d_valid — the shard's packed LOCAL observation
+    tables (point indices local to the shard's point block). All shards
+    get IDENTICAL table shapes (shared Tu / bucket widths / Rc), so the
+    results stack into one array per table; blk/diag/row/colT adjacency
+    is identical across shards (points are partitioned, so the union of
+    per-shard camera-pair blocks is the full problem's block set and the
+    all-reduced sum of the shards' G equals the single-device explicit S).
+    The JAX package's numpy, line for line.
+    Returns (per_shard list of numpy BlockSchurTables-field dicts,
+    shared adjacency dict) or None when the tables would be too large.
+    """
+    S = len(shard_obs)
+    pre = []
+    Tu = 1
+    for so in shard_obs:
+        pt = np.concatenate([np.asarray(so["r_pt"], np.int64), np.asarray(so["d_pt"], np.int64)])
+        cam = np.concatenate([np.asarray(so["r_cam"], np.int64), np.asarray(so["d_cam"], np.int64)])
+        valid = np.concatenate([np.asarray(so["r_valid"]) > 0, np.asarray(so["d_valid"]) > 0])
+        idx = np.nonzero(valid)[0]
+        counts = np.bincount(pt[idx], minlength=num_points_local) if len(idx) else np.zeros(num_points_local, np.int64)
+        Tu = max(Tu, int(counts.max()) if counts.size else 1)
+        pre.append((pt, cam, idx, counts))
+    if num_points_local * Tu * Tu > max_pair_elems // max(S, 1):
+        return None
+
+    # pass 1: per-shard uni tables + pair block keys
+    shard_uni = []
+    shard_pairs = []
+    all_keys = []
+    for pt, cam, idx, counts in pre:
+        pt_v, cam_v = pt[idx], cam[idx]
+        order = np.argsort(pt_v, kind="stable")
+        pt_s, cam_s, obs_s = pt_v[order], cam_v[order], idx[order]
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        flat = pt_s * Tu + (np.arange(len(pt_s)) - starts[pt_s])
+        uni_slots = np.zeros((num_points_local * Tu,), np.int32)
+        uni_mask = np.zeros((num_points_local * Tu,), np.float32)
+        uni_cam = np.full((num_points_local * Tu,), -1, np.int64)
+        uni_slots[flat] = obs_s.astype(np.int32)
+        uni_mask[flat] = 1.0
+        uni_cam[flat] = cam_s
+        um = uni_mask.reshape(num_points_local, Tu)
+        uc = uni_cam.reshape(num_points_local, Tu)
+        m2 = (um[:, :, None] * um[:, None, :]) > 0
+        ca = np.broadcast_to(uc[:, :, None], m2.shape)
+        cb = np.broadcast_to(uc[:, None, :], m2.shape)
+        keep = m2 & (ca <= cb)
+        p_i, k_i, l_i = np.nonzero(keep)
+        a_flat = (p_i * Tu + k_i).astype(np.int32)
+        b_flat = (p_i * Tu + l_i).astype(np.int32)
+        bkey = ca[keep] * num_cams + cb[keep]
+        shard_uni.append((uni_slots.reshape(num_points_local, Tu),
+                          um, uc))
+        shard_pairs.append((a_flat, b_flat, bkey))
+        all_keys.append(np.unique(bkey))
+
+    ukeys = np.unique(np.concatenate(all_keys)) if all_keys else np.zeros(0, np.int64)
+    B = len(ukeys)
+    if B == 0:
+        return None
+    # per-block max count over shards drives the shared bucket widths
+    maxcnt = np.zeros(B, np.int64)
+    shard_binv = []
+    for a_flat, b_flat, bkey in shard_pairs:
+        binv = np.searchsorted(ukeys, bkey)
+        shard_binv.append(binv)
+        cnt = np.bincount(binv, minlength=B)
+        maxcnt = np.maximum(maxcnt, cnt)
+    border = np.argsort(-maxcnt, kind="stable")
+    inv_border = np.empty(B, np.int64)
+    inv_border[border] = np.arange(B)
+    blk_rows = (ukeys[border] // num_cams).astype(np.int32)
+    blk_cols = (ukeys[border] % num_cams).astype(np.int32)
+    maxcnt = maxcnt[border]
+    widths = np.maximum(8, 2 ** np.ceil(np.log2(np.maximum(maxcnt, 1))).astype(np.int64))
+    bounds = [0] + [i for i in range(1, B) if widths[i] != widths[i - 1]] + [B]
+    if B * int(widths[0]) > max_block_elems:  # widths[0] is the widest bucket
+        return None
+
+    per_shard = []
+    for s in range(S):
+        uni_slots, um, uc = shard_uni[s]
+        a_flat, b_flat, bkey = shard_pairs[s]
+        binv = inv_border[shard_binv[s]]
+        order2 = np.argsort(binv, kind="stable")
+        bcnt = np.bincount(binv, minlength=B)
+        bstarts = np.concatenate([[0], np.cumsum(bcnt)[:-1]])
+        a_s, b_s, binv_s = a_flat[order2], b_flat[order2], binv[order2]
+        offs = np.arange(len(binv_s)) - bstarts[binv_s]
+        con_a, con_b, con_mask = [], [], []
+        for s0, e0 in zip(bounds[:-1], bounds[1:]):
+            Kb = int(widths[s0])
+            nb = e0 - s0
+            sel = (binv_s >= s0) & (binv_s < e0)
+            rows_b = (binv_s[sel] - s0) * Kb + offs[sel]
+            ta = np.zeros((nb * Kb,), np.int32)
+            tb = np.zeros((nb * Kb,), np.int32)
+            tm = np.zeros((nb * Kb,), np.float32)
+            ta[rows_b] = a_s[sel]
+            tb[rows_b] = b_s[sel]
+            tm[rows_b] = 1.0
+            con_a.append(ta.reshape(nb, Kb))
+            con_b.append(tb.reshape(nb, Kb))
+            con_mask.append(tm.reshape(nb, Kb))
+        per_shard.append({
+            "uni_slots": uni_slots, "uni_mask": um,
+            "con_a": tuple(con_a), "con_b": tuple(con_b), "con_mask": tuple(con_mask),
+            "uni_cam": uc,
+        })
+
+    # shared adjacency
+    diag_ids = np.zeros((num_cams,), np.int32)
+    diag_mask = np.zeros((num_cams,), np.float32)
+    is_diag = blk_rows == blk_cols
+    diag_ids[blk_rows[is_diag]] = np.nonzero(is_diag)[0].astype(np.int32)
+    diag_mask[blk_rows[is_diag]] = 1.0
+
+    def group(ids_of_blocks, sel):
+        sel_ids = np.nonzero(sel)[0]
+        cams = ids_of_blocks[sel]
+        cnt = np.bincount(cams, minlength=num_cams)
+        R = max(int(cnt.max()), 1)
+        slots = np.zeros((num_cams * R,), np.int32)
+        mask = np.zeros((num_cams * R,), np.float32)
+        o = np.argsort(cams, kind="stable")
+        st = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+        rr = cams[o] * R + (np.arange(len(cams)) - st[cams[o]])
+        slots[rr] = sel_ids[o].astype(np.int32)
+        mask[rr] = 1.0
+        return slots.reshape(num_cams, R), mask.reshape(num_cams, R)
+
+    row_slots, row_mask = group(blk_rows, np.ones(B, bool))
+    colT_slots, colT_mask = group(blk_cols, blk_rows < blk_cols)
+    shared = {
+        "blk_rows": blk_rows, "blk_cols": blk_cols,
+        "diag_ids": diag_ids, "diag_mask": diag_mask,
+        "row_slots": row_slots, "row_mask": row_mask,
+        "colT_slots": colT_slots, "colT_mask": colT_mask,
+    }
+
+    # per-shard pm-row -> camera tables (shared Rc)
+    Rc = 1
+    for ps in per_shard:
+        pm_valid = ps["uni_mask"].reshape(-1) > 0
+        vcams = np.maximum(ps["uni_cam"].reshape(-1), 0)[pm_valid]
+        cnt = np.bincount(vcams, minlength=num_cams) if len(vcams) else np.zeros(num_cams, np.int64)
+        Rc = max(Rc, int(cnt.max()) if cnt.size else 1)
+    for ps in per_shard:
+        uni_cam = ps.pop("uni_cam")
+        pm_cam = np.maximum(uni_cam.reshape(-1), 0).astype(np.int32)
+        pm_valid = ps["uni_mask"].reshape(-1) > 0
+        vrows = np.nonzero(pm_valid)[0]
+        vcams = pm_cam[vrows]
+        ccnt = np.bincount(vcams, minlength=num_cams) if len(vcams) else np.zeros(num_cams, np.int64)
+        cam_slots = np.zeros((num_cams * Rc,), np.int32)
+        cam_mask = np.zeros((num_cams * Rc,), np.float32)
+        if len(vcams):
+            co = np.argsort(vcams, kind="stable")
+            cst = np.concatenate([[0], np.cumsum(ccnt)[:-1]])
+            crr = vcams[co] * Rc + (np.arange(len(vcams)) - cst[vcams[co]])
+            cam_slots[crr] = vrows[co].astype(np.int32)
+            cam_mask[crr] = 1.0
+        ps["pm_cam"] = pm_cam
+        ps["cam_slots"] = cam_slots.reshape(num_cams, Rc)
+        ps["cam_mask"] = cam_mask.reshape(num_cams, Rc)
+
+    return per_shard, shared
 
 
 def tables_to(bs: BlockSchurTables, device) -> BlockSchurTables:

@@ -472,22 +472,44 @@ def _schur_pcg(data: BAData, Hcc_aug, Hpp_inv, Wr_rows, Wd_rows, rhs, cg_iters: 
     return masked_pcg(S_mv, inv_spd(Hcc_aug), rhs, cg_iters, cg_tol, x0)
 
 
-def _dense_schur_solve(T, Hcc_aug, Hpp_inv, rhs):
-    """S = Hcc_aug − T Hpp⁻¹ Tᵀ formed densely (6C × 6C; the contraction
-    is one product) and S + 1e-7·I solved by ba/cholesky.cholesky_solve:
-    K1 on a CUDA tensor, its plain version on a CPU one. Returns (Δc (C,6), 0)."""
-    C = Hcc_aug.shape[0]
-    P = Hpp_inv.shape[0]
+def _schur_coupling(T, Hpp_inv):
+    """T Hpp⁻¹ Tᵀ (6C × 6C) of the per-(point, camera) coupling T (P,C,6,3),
+    formed densely: the contraction is one product."""
+    P, C = T.shape[:2]
     K = 6 * C
     U = T.reshape(P, K, 3)
     TB = torch.bmm(U, Hpp_inv)  # (P, 6C, 3)
-    S = -(TB.permute(1, 0, 2).reshape(K, 3 * P) @ U.permute(1, 0, 2).reshape(K, 3 * P).T)
-    S = S.reshape(C, 6, C, 6)
+    return TB.permute(1, 0, 2).reshape(K, 3 * P) @ U.permute(1, 0, 2).reshape(K, 3 * P).T
+
+
+def _reduced_solve(S_red, Hcc_aug, rhs):
+    """S = Hcc_aug − S_red (Hcc_aug on the 6×6 diagonal blocks), S + 1e-7·I
+    solved by ba/cholesky.cholesky_solve: K1 on a CUDA tensor, its plain
+    version on a CPU one. Returns Δc (C,6)."""
+    C = Hcc_aug.shape[0]
+    K = 6 * C
+    S = (-S_red).reshape(C, 6, C, 6)
     ii = torch.arange(C, device=S.device)
     S[ii, :, ii, :] += Hcc_aug
     S = S.reshape(K, K) + 1e-7 * torch.eye(K, dtype=S.dtype, device=S.device)
-    x = cholesky_solve(S, rhs.reshape(K))
-    return x.reshape(C, 6), torch.zeros((), dtype=torch.int32, device=rhs.device)
+    return cholesky_solve(S, rhs.reshape(K)).reshape(C, 6)
+
+
+def _dense_schur_solve(T, Hcc_aug, Hpp_inv, rhs):
+    """S = Hcc_aug − T Hpp⁻¹ Tᵀ formed densely (6C × 6C) and solved
+    (_reduced_solve). Returns (Δc (C,6), 0)."""
+    x = _reduced_solve(_schur_coupling(T, Hpp_inv), Hcc_aug, rhs)
+    return x, torch.zeros((), dtype=torch.int32, device=rhs.device)
+
+
+def _backsub_rows(data: BAData, Wr, Wd, Hpp_inv, g_p, delta_c):
+    """Δp = −Hpp⁻¹ (g_p + Wᵀ Δc) through the observation rows and the point
+    slot tables; Wr (No,6,3), Wd (Nd,6,3)."""
+    wtd_r = (Wr * _cam_broadcast_rows(delta_c, Wr.shape[0])[:, :, None]).sum(1)  # (No,3)
+    wtd_d = (Wd * _cam_broadcast_rows(delta_c, Wd.shape[0])[:, :, None]).sum(1)
+    wtd = (wtd_r[data.r_pt_slots] * data.r_pt_slot_mask[..., None]).sum(1)
+    wtd = wtd + (wtd_d[data.d_pt_slots] * data.d_pt_slot_mask[..., None]).sum(1)  # (P,3)
+    return -torch.einsum("pij,pj->pi", Hpp_inv, g_p + wtd) * data.point_var[:, None]
 
 
 def solve_ba(
@@ -587,11 +609,7 @@ def solve_ba(
         if use_bs:
             delta_p = pm_backsub(V, Hpp_inv, g_p, delta_c, data.point_var, data.bs)
         else:
-            wtd_r = (Wr * _cam_broadcast_rows(delta_c, No)[:, :, None]).sum(1)  # (No,3)
-            wtd_d = (Wd * _cam_broadcast_rows(delta_c, Nd)[:, :, None]).sum(1)
-            wtd = (wtd_r[data.r_pt_slots] * data.r_pt_slot_mask[..., None]).sum(1)
-            wtd = wtd + (wtd_d[data.d_pt_slots] * data.d_pt_slot_mask[..., None]).sum(1)  # (P,3)
-            delta_p = -torch.einsum("pij,pj->pi", Hpp_inv, g_p + wtd) * data.point_var[:, None]
+            delta_p = _backsub_rows(data, Wr, Wd, Hpp_inv, g_p, delta_c)
 
         quat_new, t_new = _apply_cam_update(quat, t, delta_c)
         xyz_new = xyz + delta_p

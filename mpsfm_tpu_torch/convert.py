@@ -61,6 +61,17 @@ def ba_data(arrays: dict, device="cuda") -> BAData:
     return BAData(**{f: conv(arrays.get(f)) for f in BAData._fields if f != "bs"}, bs=bs)
 
 
+def parts(jparts: dict) -> dict:
+    """mpsfm_tpu.parallel.dist_ba.partition_ba_data's parts -> the port's:
+    the same layout ("repl" and "shard" dicts of arrays, "n_bs_buckets"
+    when the block-Schur tables exist), every array a numpy copy; the
+    port's solve_ba_block_sharded uploads each rank's shard itself."""
+    out = {key: {k: np.array(v) for k, v in jparts[key].items()} for key in ("repl", "shard")}
+    if "n_bs_buckets" in jparts:
+        out["n_bs_buckets"] = int(jparts["n_bs_buckets"])
+    return out
+
+
 def bini_inputs(arrays: dict, device="cuda") -> BiniInputs:
     """mpsfm_tpu.integration.bini.BiniInputs fields, (H,W) or (B,H,W) each
     -> BiniInputs of float32 tensors of the same shapes."""

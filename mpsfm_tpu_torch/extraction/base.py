@@ -28,6 +28,7 @@ from mpsfm_tpu_torch.extraction.features.classical import ClassicalFeatures
 from mpsfm_tpu_torch.extraction.matchers.nn import MutualNNMatcher
 from mpsfm_tpu_torch.extraction.pairs import pairs_exhaustive, pairs_from_retrieval, pairs_sequential
 from mpsfm_tpu_torch.extraction.priors import get_prior_backend, normals_from_depth
+from mpsfm_tpu_torch.parallel.sharded_inference import run_sharded_batches
 from mpsfm_tpu_torch.utils import io
 from mpsfm_tpu_torch.utils.workqueue import WorkQueue
 
@@ -41,6 +42,7 @@ class Extraction(BaseClass):
     default_conf = {
         "features": "classical",  # superpoint once weights are present
         "matcher": "nn",
+        "sharded_inference": True,  # shape buckets shared out over the ranks of the process group
         "matches_mode": "sparse",  # sparse | dense | sparse+dense (+measured)
         "depth": "oracle",
         "normals": "from_depth",
@@ -176,10 +178,14 @@ class Extraction(BaseClass):
             self.log(f"features {name}: {len(kps)} kps", level=2)
         return path
 
-    @staticmethod
-    def _feature_preds(model, images):
+    def _feature_preds(self, model, images):
         """Per-image detections; images of one shape go through the detector
-        together (model.batch)."""
+        together: with sharded_inference as shape buckets shared out over
+        the ranks of the process group (parallel.sharded_inference; with
+        one rank plain batching), else model.batch per shape."""
+        if self.conf.sharded_inference and hasattr(model, "batch_fn") and len(images) > 1:
+            outs = run_sharded_batches(model.batch_fn(), images, lambda x: x, device=model.device)
+            return [model.postprocess(o) for o in outs]
         preds = [None] * len(images)
         by_shape = {}
         for i, im in enumerate(images):

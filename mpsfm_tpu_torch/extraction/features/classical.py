@@ -267,22 +267,34 @@ class ClassicalFeatures:
         self.conf = {**self.default_conf, **(conf or {})}
         self.device = resolve_device(device)
 
-    def batch(self, images: list[np.ndarray]) -> list[dict]:
-        """Features of same-shape gray images in [0, 1] -> one dict of host
-        arrays (keypoints, scores, descriptors) an image; the images run
-        together, as many a call as the histogram bound allows."""
+    def batch_fn(self):
+        """(B, H, W) float32 tensor -> padded (kps, vals, desc, valid) with
+        the leading batch axis, as many images a call as the histogram
+        bound allows: the unit parallel.sharded_inference shards over the
+        ranks."""
         c = self.conf
         per_call = max(1, self.max_hist_elements // (c["max_keypoints"] * 17 * 17 * 36))
-        out = []
-        for s in range(0, len(images), per_call):
-            x = torch.as_tensor(np.stack(images[s:s + per_call]), dtype=torch.float32, device=self.device)
-            kps, vals, desc, valid = (
-                t.cpu().numpy()
-                for t in detect_describe(x, c["max_keypoints"], c["nms_radius"], c["detection_threshold"])
-            )
-            out += [{"keypoints": kps[i][valid[i]], "scores": vals[i][valid[i]], "descriptors": desc[i][valid[i]]}
-                    for i in range(len(x))]
-        return out
+
+        def fn(x):
+            outs = [detect_describe(x[s:s + per_call], c["max_keypoints"], c["nms_radius"], c["detection_threshold"])
+                    for s in range(0, len(x), per_call)]
+            return tuple(torch.cat(o) for o in zip(*outs))
+
+        return fn
+
+    @staticmethod
+    def postprocess(out):
+        """One image's padded (kps, vals, desc, valid) host arrays -> its
+        keypoints, scores and descriptors."""
+        kps, vals, desc, valid = out
+        return {"keypoints": kps[valid], "scores": vals[valid], "descriptors": desc[valid]}
+
+    def batch(self, images: list[np.ndarray]) -> list[dict]:
+        """Features of same-shape gray images in [0, 1] -> one dict of host
+        arrays (keypoints, scores, descriptors) an image (batch_fn)."""
+        x = torch.as_tensor(np.stack(images), dtype=torch.float32, device=self.device)
+        outs = [t.cpu().numpy() for t in self.batch_fn()(x)]
+        return [self.postprocess(o) for o in zip(*outs)]
 
     def __call__(self, image_gray: np.ndarray):
         return self.batch([image_gray])[0]

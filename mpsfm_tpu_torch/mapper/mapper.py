@@ -14,8 +14,12 @@ propagation (K3), the point covariances (K1 many), the dense LM-Schur BA
 (K1; above the dense layout the sparse LM of ba/solver.py with its
 block-sparse Schur CG) and the depth-consistency check.
 
-Nothing falls back: a sharded dist_ba decision raises (the distributed
-BA is not ported) and the mapper does not catch it.
+With two ranks or more in a process group every rank runs this loop on
+the same inputs and takes the same decisions; the global BAs of
+dist_ba_min_cams cameras or more are then sharded over the ranks
+(Optimizer._run_solve_dist, parallel/dist_ba.py), the only step that
+communicates. Nothing falls back: a failed collective or a rank whose
+state diverged raises, and the mapper does not catch it.
 """
 
 from __future__ import annotations

@@ -11,9 +11,15 @@ bundle as the JAX package does: it finalizes the deferred integration
 and int_covs (finalize_deferred_all), updates the truncation multiplier
 on the host when asked, rebuilds with the host depth rows and solves.
 The results the host needs are read with `.cpu()`; the JAX package packs
-them into one read for its TPU transport. Not ported, raising
-NotImplementedError before anything is built or finalized: the
-distributed BA over several cards (ROADMAP queue 1 item 5).
+them into one read for its TPU transport.
+
+A global BA of dist_ba_min_cams cameras or more, in a process group of
+two ranks or more (parallel/multihost.py: one process a card, every rank
+running the mapper on the same inputs), is sharded as the JAX package
+shards it over its mesh: its points are partitioned over the ranks
+(parallel/dist_ba.py) and the LM reduces the camera system with
+all-reduces; the point blocks come back with all_gather before the
+result is written to the Reconstruction on every rank.
 """
 
 from __future__ import annotations
@@ -34,6 +40,14 @@ from mpsfm_tpu_torch.ba.shift_scale import optimize_prior_shiftscale as _shift_s
 from mpsfm_tpu_torch.ba.shift_scale import update_truncation_multiplier as _trunc
 from mpsfm_tpu_torch.ba.solver import solve_ba
 from mpsfm_tpu_torch.config import BaseClass
+from mpsfm_tpu_torch.parallel import multihost
+from mpsfm_tpu_torch.parallel.dist_ba import (
+    all_gather_points,
+    make_group,
+    partition_ba_data,
+    solve_ba_block_sharded,
+    unpartition_points,
+)
 from mpsfm_tpu_torch.scene.image_priors import (
     finalize_deferred_all,
     finalize_int_covs,
@@ -59,11 +73,13 @@ class Optimizer(BaseClass):
         "max_iters": 20,
         "cg_iters": 32,
         "use_depth": True,
-        # distributed BA over several devices: "auto" | "on" | "off"
-        # (the sharded solve is not ported: a bundle given to it raises)
+        # distributed BA: global refinements of dist_ba_min_cams cameras or
+        # more partition their points over the ranks of the process group
+        # (parallel/dist_ba.py); one device below the threshold or with one
+        # rank. "auto" | "on" | "off"
         "dist_ba": "auto",
         "dist_ba_min_cams": 96,
-        "dist_ba_shards": 0,  # 0 -> all local devices
+        "dist_ba_shards": 0,  # 0 -> every rank of the default group
         "verbose": 0,
     }
 
@@ -71,19 +87,23 @@ class Optimizer(BaseClass):
         self.rec = rec
         self.device = resolve_device(device)
         self.truncation_multiplier = 1.0
+        self.dist_solves = 0  # how many BAs ran sharded
+        self._groups = {}  # shard count -> process group (created collectively, once)
 
     def _solve(self, bundle, mode, fix_pose, depth_loss_name, param_multiplier=1.0,
                allow_scale_filter=False, depth_type="update"):
-        self._refuse_dist_ba(bundle, mode, fix_pose)
+        n_shards = self._use_dist_ba(bundle, mode) if not fix_pose else 0
         with TIMERS.phase("ba.build_data"):
             prob = self._build(
                 bundle, mode, fix_pose, param_multiplier,
                 allow_scale_filter, depth_type,
+                # the distributed solver partitions the sparse obs tables
+                representation="sparse" if n_shards else "solve",
             )
-        return self._run_solve(prob, mode, depth_loss_name)
+        return self._run_solve(prob, mode, depth_loss_name, n_shards)
 
     def _build(self, bundle, mode, fix_pose, param_multiplier,
-               allow_scale_filter, depth_type, device_depth=False):
+               allow_scale_filter, depth_type, representation="solve", device_depth=False):
         return build_ba_data(
             self.rec,
             bundle,
@@ -97,17 +117,18 @@ class Optimizer(BaseClass):
             allow_scale_filter=allow_scale_filter and self.conf.scale_filter,
             scale_filter_factor=self.conf.scale_filter_factor,
             use_depth=self.conf.use_depth,
-            representation="solve",
+            representation=representation,
             device_depth=device_depth,
             device=self.device,
         )
 
     def _use_dist_ba(self, bundle, mode):
-        """How many devices a global BA is sharded over, as the JAX package
-        decides it (0: one device; a CPU tensor counts one)."""
+        """How many ranks a global BA is sharded over, as the JAX package
+        decides it over its devices: here the devices the program spans
+        are the ranks of the default process group (0: not sharded)."""
         if self.conf.dist_ba == "off" or mode != "global":
             return 0
-        n_dev = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        n_dev = multihost.world_size()
         n = int(self.conf.dist_ba_shards) or n_dev
         n = min(n, n_dev)
         if n < 2:
@@ -117,17 +138,40 @@ class Optimizer(BaseClass):
         C = len(bundle["optim_ids"])
         return n if C >= int(self.conf.dist_ba_min_cams) else 0
 
-    def _refuse_dist_ba(self, bundle, mode, fix_pose):
-        """Raises on a sharded decision of _use_dist_ba, before anything is
-        built or finalized: the distributed BA is not ported."""
-        n_shards = 0 if fix_pose else self._use_dist_ba(bundle, mode)
-        if n_shards:
-            raise NotImplementedError(
-                f"Optimizer: the distributed BA over {n_shards} devices (_run_solve_dist) is not ported; it comes "
-                "with the multi-card slice (ROADMAP queue 1 item 5). dist_ba='off' solves on one device."
+    def _run_solve_dist(self, prob, mode, depth_loss_name, n_shards):
+        """Global BA over the process group: point-block partition and the
+        LM with all-reduced Schur reduction (the reference runs this
+        through Ceres threads, mpsfm/sfm/mapper/base.py:476-514; here the
+        ranks are the scaling axis). The point blocks are all-gathered, so
+        every rank writes the same result."""
+        self.dist_solves += 1
+        parts, pids = partition_ba_data(prob.data, n_shards)
+        if n_shards not in self._groups:
+            self._groups[n_shards] = make_group(n_shards)
+        group = self._groups[n_shards]
+        with TIMERS.phase(f"ba[{mode}/dist]"):
+            quat, t, xyz_l, info = solve_ba_block_sharded(
+                parts, group,
+                reproj_loss=losses.LOSS_IDS[self.conf.reproj_loss_name],
+                depth_loss=losses.LOSS_IDS[depth_loss_name],
+                max_iters=self.conf.max_iters,
+                device=self.device,
+                digest=prob.cam_ids,
             )
+            cost0, cost, accepted = float(info["cost0"]), float(info["cost"]), int(info["accepted"])
+        if not np.isfinite(cost):
+            return None, False
+        xyz = unpartition_points(all_gather_points(xyz_l, group), pids, int(prob.data.xyz.shape[0]))
+        apply_ba_result(self.rec, prob, quat, t, xyz)
+        self.log(
+            f"BA[{mode}/dist x{n_shards}] cost {cost0:.1f} -> {cost:.1f} ({accepted} steps)",
+            level=2,
+        )
+        return {"cost0": cost0, "cost": cost, "accepted": accepted}, True
 
-    def _run_solve(self, prob, mode, depth_loss_name):
+    def _run_solve(self, prob, mode, depth_loss_name, n_shards=0):
+        if n_shards and prob.data is not None:
+            return self._run_solve_dist(prob, mode, depth_loss_name, n_shards)
         loss_kw = dict(
             reproj_loss=losses.LOSS_IDS[self.conf.reproj_loss_name],
             depth_loss=losses.LOSS_IDS[depth_loss_name],
@@ -166,30 +210,34 @@ class Optimizer(BaseClass):
         pending: integrate_bundle_deferred's finalize payload, finalized
         after the BA with its info rows; unc_overrides / pending_covs:
         int_covs_bundle_deferred's device variance rows and its payload.
-        A bundle above the dense layout falls back as in the JAX package:
-        finalize_deferred_all(pending, pending_covs), the host truncation
-        multiplier when update_trunc, a rebuild with the host depth rows
-        and _run_solve (solve_ba). A sharded decision raises before
-        pending is touched."""
+        A bundle above the dense layout, or a sharded one (_use_dist_ba),
+        falls back as in the JAX package: finalize_deferred_all(pending,
+        pending_covs), the host truncation multiplier when update_trunc, a
+        rebuild with the host depth rows and _run_solve (solve_ba, or the
+        distributed solve on the "sparse" representation)."""
         depth_loss_name = (
             self.conf.ref3d_loss_name if fix_pose else self.conf.depth_loss_name
         )
-        self._refuse_dist_ba(bundle, mode, fix_pose)
-        with TIMERS.phase("ba.build_data"):
-            prob = self._build(
-                bundle, mode, fix_pose, param_multiplier, allow_scale_filter,
-                depth_type, device_depth=True,
-            )
-        if prob.dense is None:
+        n_shards = self._use_dist_ba(bundle, mode) if not fix_pose else 0
+        prob = None
+        if not n_shards:
+            with TIMERS.phase("ba.build_data"):
+                prob = self._build(
+                    bundle, mode, fix_pose, param_multiplier, allow_scale_filter,
+                    depth_type, device_depth=True,
+                )
+        if n_shards or prob.dense is None:
             # fallback: finalize the deferred integration, then the
-            # classic path with the host depth rows
+            # classic path with the host depth rows (the distributed
+            # solver on a sharded decision)
             finalize_deferred_all(pending, pending_covs)
             if update_trunc:
                 with TIMERS.phase("truncation_multiplier"):
                     self.update_truncation_multiplier(self.rec.reg_image_ids())
             with TIMERS.phase("ba.build_data"):
-                prob = self._build(bundle, mode, fix_pose, param_multiplier, allow_scale_filter, depth_type)
-            return self._run_solve(prob, mode, depth_loss_name)
+                prob = self._build(bundle, mode, fix_pose, param_multiplier, allow_scale_filter, depth_type,
+                                   representation="sparse" if n_shards else "solve")
+            return self._run_solve(prob, mode, depth_loss_name, n_shards)
         specs = prob.depth_specs or {}
         dense = prob.dense
         dev = dense.quat.device

@@ -1,7 +1,8 @@
-"""The port stands alone: it imports neither jax nor the JAX package nor,
-at import time, OpenCV, PyYAML or h5py (the image decoder, the artifact
-store and the intrinsics reader of the main path need none of them), its
-state-creating entry points refuse to fall back to the CPU, and
+"""The port stands alone, parallel/ included: it imports neither jax nor
+the JAX package nor, at import time, OpenCV, PyYAML or h5py (the image
+decoder, the artifact store and the intrinsics reader of the main path
+need none of them), its state-creating entry points refuse to fall back
+to the CPU, and
 chip_smoke.py gives no result without a card or without the package.
 
 The import check runs in a subprocess because tests/conftest.py imports
@@ -53,7 +54,9 @@ need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag"
         "mpsfm_tpu_torch.utils.workqueue", "mpsfm_tpu_torch.utils.colmap_io", "mpsfm_tpu_torch.datasets.simple",
         "mpsfm_tpu_torch.extraction.pairs", "mpsfm_tpu_torch.extraction.features.classical",
         "mpsfm_tpu_torch.extraction.matchers.nn", "mpsfm_tpu_torch.extraction.priors",
-        "mpsfm_tpu_torch.extraction.base", "mpsfm_tpu_torch.eval", "mpsfm_tpu_torch.pipeline", "mpsfm_tpu_torch.cli"}
+        "mpsfm_tpu_torch.extraction.base", "mpsfm_tpu_torch.eval", "mpsfm_tpu_torch.pipeline", "mpsfm_tpu_torch.cli",
+        "mpsfm_tpu_torch.parallel", "mpsfm_tpu_torch.parallel.dist_ba", "mpsfm_tpu_torch.parallel.multihost",
+        "mpsfm_tpu_torch.parallel.sharded_inference"}
 # the card's host has no OpenCV: no module of the port imports cv2 at import time
 bad += ["cv2"] if "cv2" in sys.modules else []
 print(len(names), bad)

@@ -161,17 +161,26 @@ def test_block_schur_branch_raises(rng, monkeypatch):
     """A problem above the dense layout (Pb·Cb > DENSE_MAX) no longer
     raises: it gets the slot-table BAData without per-(point, camera)
     tables, with the block-sparse Schur tables unless only the sparse
-    tables are asked for (the covariance path); a sharded decision still
-    raises (tests/test_torch_sparse_ba.py holds the tables to JAX's)."""
+    tables are asked for (the covariance path); a sharded decision builds
+    the "sparse" tables, which the distributed solver partitions (one
+    shard in one process here), and gives the JAX package's sharded result
+    (tests/test_torch_sparse_ba.py holds the tables to JAX's). Named when
+    the block-Schur branch and the sharded one raised."""
     rj, rt, _ = synthetic_pair(rng, n_cams=4, n_pts=60)
     monkeypatch.setattr(tproblem, "DENSE_MAX", 16)
     for rep in ("both", "solve", "sparse"):
         p = tproblem.build_ba_data(rt, global_bundle(rt), representation=rep, device="cpu")
         assert p.dense is None and p.data is not None and p.data.pc_r_slot is None
         assert (p.data.bs is None) == (rep == "sparse")
-    monkeypatch.setattr(topt.Optimizer, "_use_dist_ba", lambda self, bundle, mode: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        topt.Optimizer({}, rt, device="cpu").ba(global_bundle(rt))
+    for cls in (topt.Optimizer, JOptimizer):
+        monkeypatch.setattr(cls, "_use_dist_ba", lambda self, bundle, mode: 1)
+    # depth rows pin the scale: without them the block CG's 1e-3 tolerance
+    # leaves the soft scale mode where float32 order takes it
+    rj, rt, _ = synthetic_pair(rng, depth=True, n_cams=4, n_pts=60)
+    ot, oj = topt.Optimizer({}, rt, device="cpu"), JOptimizer({}, rj)
+    (it, okt), (ij, okj) = ot.ba(global_bundle(rt)), oj.ba(global_bundle(rj))
+    assert okt and okj and ot.dist_solves == oj.dist_solves == 1
+    assert_ba_close(ij, it, rj, rt)
 
 
 def test_entry_points_refuse_the_cpu_without_a_card(rng, monkeypatch):
@@ -374,10 +383,16 @@ def test_port_depth_priors_fix_scale_drift(rng):
 
 
 def test_unported_solvers_raise(rng, monkeypatch):
-    """A sharded solve (ROADMAP queue 1 item 5) raises from every BA entry
-    point before the reconstruction changes and does not fall back. A
-    bundle above the dense layout is no longer refused: every entry point
-    solves it with solve_ba (the sparse solver, ported)."""
+    """Every BA entry point solves a bundle above the dense layout with
+    solve_ba (the sparse solver). A sharded decision (_use_dist_ba) takes
+    the distributed branch in `ba` and `ba_fused` as the JAX package's
+    does: the "sparse" representation, the partition and the sharded LM,
+    whose point blocks are gathered before the result is written; here
+    with one shard in one process (no group: one rank, no collective),
+    against the JAX package's sharded branch on a one-device mesh on the
+    same Reconstruction, at this file's Optimizer bounds. refine_3d_points
+    fixes the poses and is never sharded. (Named when the sharded branch
+    was not ported and these calls raised.)"""
     _, rt, _ = synthetic_pair(rng, n_cams=3, n_pts=30)
     opt = topt.Optimizer({}, rt, device="cpu")
     bundle = global_bundle(rt)
@@ -391,14 +406,27 @@ def test_unported_solvers_raise(rng, monkeypatch):
             info, ok = call()
             assert ok and info["cost"] <= info["cost0"]
     rt.xyz[:] = before
-    assert opt._use_dist_ba(bundle, "global") == 0  # one device
+    assert opt._use_dist_ba(bundle, "global") == 0  # one process
     assert topt.Optimizer({"dist_ba": "on"}, rt, device="cpu")._use_dist_ba(bundle, "global") == 0
-    monkeypatch.setattr(topt.Optimizer, "_use_dist_ba", lambda self, bundle, mode: 2)
-    monkeypatch.setattr(topt, "build_ba_data", lambda *a, **k: pytest.fail("built before the refusal"))
-    for call in calls[:2]:  # refine_3d_points fixes the poses: never sharded
-        with pytest.raises(NotImplementedError, match="item 5"):
-            call()
-    np.testing.assert_array_equal(rt.xyz, before)
+    assert opt.dist_solves == 0
+    monkeypatch.setattr(topt.Optimizer, "_use_dist_ba", lambda self, bundle, mode: 1)
+    monkeypatch.setattr(JOptimizer, "_use_dist_ba", lambda self, bundle, mode: 1)
+    build = topt.build_ba_data
+    reps = []
+    monkeypatch.setattr(topt, "build_ba_data", lambda *a, **k: reps.append(k["representation"]) or build(*a, **k))
+    for name in ("ba", "ba_fused"):
+        # depth rows pin the scale (the block CG stops at 1e-3 of the residual)
+        rj, rt, _ = synthetic_pair(np.random.default_rng(1), depth=True, n_cams=3, n_pts=30, noise_px=0.5)
+        oj, ot = JOptimizer({}, rj), topt.Optimizer({}, rt, device="cpu")
+        reps.clear()
+        args = (global_bundle(rj), "global", None) if name == "ba_fused" else (global_bundle(rj),)
+        (ij, okj), (it, okt) = getattr(oj, name)(*args), getattr(ot, name)(*args)
+        assert okj and okt
+        assert_ba_close(ij, it, rj, rt)
+        assert ot.dist_solves == oj.dist_solves == 1 and reps == ["sparse"]
+    monkeypatch.setenv("MPSFM_FUSED_REFINE", "0")  # the host depth rows (FakeDepth has no device grid)
+    info, ok = ot.refine_3d_points(global_bundle(rt))
+    assert ok and ot.dist_solves == 1 and reps[-1] == "solve"
 
 
 def sync(rj, rt, pj, pt, oj, ot):
@@ -510,34 +538,41 @@ def test_optimizer_refinement_chain_matches_jax(monkeypatch, fused_refine):
 
 
 def test_ba_fused_falls_back_through_finalize(monkeypatch):
-    """A sharded decision makes ba_fused raise before it finalizes
-    anything: the deferred integration and int_covs stay pending and the
-    truncation multiplier stays. The JAX package's fallback, which
-    finalizes them on the host (finalize_deferred_all) and takes the host
-    truncation multiplier, then gives the same on both packages."""
+    """A sharded decision makes ba_fused take the JAX package's fallback
+    before its sharded solve: it finalizes the deferred integration and
+    int_covs on the host (finalize_deferred_all), takes the host truncation
+    multiplier, rebuilds with the host depth rows and solves sharded (one
+    shard in one process). The same on both packages: the changed lanes,
+    the priors, the truncation multiplier and the BA's result."""
     rj, rt, pj, pt = plane_pair()
-    ot = topt.Optimizer({}, rt, device="cpu")
+    oj, ot = JOptimizer({}, rj), topt.Optimizer({}, rt, device="cpu")
     hj, pendj = jip.integrate_bundle_deferred(pj[:2])
     ht, pendt = tip.integrate_bundle_deferred(pt[:2])
     uj, covj = jip.int_covs_bundle_deferred(pj[:2], hj, lanes(pendj))
     ut, covt = tip.int_covs_bundle_deferred(pt[:2], ht, lanes(pendt))
-    unc0 = {b.imid: b.depth.uncertainty_update.copy() for b in pt[:2]}
-    monkeypatch.setattr(topt.Optimizer, "_use_dist_ba", lambda self, bundle, mode: 2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ot.ba_fused(global_bundle(rt), "global", None, pending=pendt, update_trunc=True, unc_overrides=ut,
-                    pending_covs=covt)
     assert not any(b.integrator.integrated for b in pt[:2]) and ot.truncation_multiplier == 1.0
-    for b in pt[:2]:
-        np.testing.assert_array_equal(b.depth.uncertainty_update, unc0[b.imid])
-    chj = jip.finalize_deferred_all(pendj, covj)
-    cht = tip.finalize_deferred_all(pendt, covt)
-    assert cht == chj and all(chj.values())
+    for cls in (topt.Optimizer, JOptimizer):
+        monkeypatch.setattr(cls, "_use_dist_ba", lambda self, bundle, mode: 1)
+    seen = {}
+    for mod, key in ((tip, "port"), (jip, "jax")):
+        fin = mod.finalize_deferred_all
+
+        def spy(pending, pending_covs, fin=fin, key=key):
+            seen[key] = fin(pending, pending_covs)
+            return seen[key]
+        monkeypatch.setattr(mod, "finalize_deferred_all", spy)
+    monkeypatch.setattr(topt, "finalize_deferred_all", tip.finalize_deferred_all)
+    ij, okj = oj.ba_fused(global_bundle(rj), "global", None, pending=pendj, update_trunc=True, unc_overrides=uj,
+                          pending_covs=covj)
+    it, okt = ot.ba_fused(global_bundle(rt), "global", None, pending=pendt, update_trunc=True, unc_overrides=ut,
+                          pending_covs=covt)
+    assert okj and okt and ot.dist_solves == oj.dist_solves == 1
+    assert seen["port"] == seen["jax"] and all(seen["jax"].values())
     assert all(b.integrator.integrated for b in pt[:2])
-    assert_priors_close(pj[:2], pt[:2], chj, {b.imid: True for b in pt[:2]})
-    mj = JOptimizer({}, rj)
-    mj.update_truncation_multiplier(rj.reg_image_ids())
-    ot.update_truncation_multiplier(rt.reg_image_ids())
-    assert ot.truncation_multiplier == pytest.approx(mj.truncation_multiplier, rel=TRUNC_RTOL)
+    assert_priors_close(pj[:2], pt[:2], seen["jax"], {b.imid: True for b in pt[:2]})
+    assert ot.truncation_multiplier != 1.0
+    assert ot.truncation_multiplier == pytest.approx(oj.truncation_multiplier, rel=TRUNC_RTOL)
+    assert_ba_close(ij, it, rj, rt)
 
 
 def test_chip_smoke_scene_refinement_on_the_cpu():
