@@ -155,7 +155,28 @@
    matcher's matches, and the mapping on the CPU from the card's caches
    (the same registered images, points within 5%, ATEs below 0.05).
 
-11. The sparse BA solver (slice 8): solve_ba on the bench bundle with its
+11. The extraction modes off the main path (slice 10): (a) the port's
+   pipeline.reconstruct on the card in the sparse+dense+measured mode with
+   heuristic sky masks over the pipeline phase's geometry cut to 5 images
+   of 640×480 (10 pairs, at most 4096 dense NCC matches each), after a
+   warm-up on its first 2 images, with the launch counts at 0 just before.
+   Held: every stage on the card (the NCC flow and the masks too), each
+   kernel launched, 5/5 registered, ATE below 0.02, a points floor set from
+   the JAX package's count over the same render, the written model read
+   back, each kernel held to its plain version at the run's shapes;
+   printed: wall, frames/s, each pipe.* phase, points, the dense matches a
+   pair, the launches. (b) The dense-anchored matcher and (c) the
+   pair-depth mode on tests/test_pipeline_e2e.py's scene and conf: >= 4 of 5
+   registered, the anchored matches within 15 px of their pair's median
+   flow above 60%, the pair-depth store's depth entries. (d) Card against
+   CPU: the NCC flow of one 640×480 pair (flows equal at >= 99% of the
+   grid, certainties within 1e-5 where equal), the sky heuristic on a
+   640×480 image with a blue band (>= 99.9% of the mask equal), the onnx
+   path with a fake session at 701×800 (>= 99.9%, the net's input within
+   1e-4); the NCC flow, a mask, a guided upsample and a pyrDown ladder
+   timed on the card.
+
+12. The sparse BA solver (slice 8): solve_ba on the bench bundle with its
    per-(point, camera) tables (the dense-Schur route, K1 once an LM
    iteration), 20 LM iterations against solve_ba_dense (t within 5e-3,
    xyz within 2e-2, costs within 5%), K1 held to its plain version on the
@@ -179,7 +200,7 @@
    test_block_schur_full_solve_parity's bundle (16 × 1024) solved with the
    block-sparse tables on the card and on the CPU and matrix-free on the
    card: final costs within 2% + 1e-3.
-12. The distributed BA (slice 9), in worker processes of this script
+13. The distributed BA (slice 9), in worker processes of this script
    (`--dist-worker`; the main process never holds a process group, and
    every worker is waited for or killed): (a) on a world-size-1 NCCL
    group, solve_ba_block_sharded on the full-width sweep (512 × 131 072,
@@ -208,8 +229,9 @@ scores), the consistent scene's two scores, the estimators' times and
 checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
 own), the mapping phase's lines and launches, the pipeline phase's lines
-and launches, the sparse BA phase's lines and launches, the distributed BA's lines and launches, a
-`{"kernels": [...]}` line (K1 a second time, at the distributed BA's dense-T route), and last
+and launches, the dense modes phase's lines and launches, the sparse BA phase's lines and launches,
+the distributed BA's lines and launches, a `{"kernels": [...]}` line (K1 twice more, at the dense
+modes phase's last global BA and at the distributed BA's dense-T route), and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -285,6 +307,12 @@ K1_REL = {1.0: 1e-5, 0.01: 1e-4}
 # version itself is farther than K1_ILL_REL / K1_ILL_RATIO from the float64 solve on S (the covariances
 # of a 128-camera sweep, 2.6e-2 on this sandbox's CPU), two float32 orders differ by as much, so kernel
 # and plain are held within K1_ILL_RATIO times that distance instead (a missed tile is still off by O(1)).
+# K1_TOL is an absolute bound, so it says nothing of float32 once max |X| is past 1: at the dense modes
+# phase's κ 1.8e9 and max |X| 1.47 the plain version alone lies 3.5e-5 to 1.3e-4 from the float64 solve
+# (H100), and a kernel 1.1e-4 from it had medians as near to the float64 solve as the plain version's. So
+# with the float64 reference max |ΔX| is held within the larger of K1_TOL and K1_ILL_RATIO times twice the
+# plain version's median distance from the float64 solve (two float32 solves each that far from it differ
+# by up to twice as much) times max |X|; a missed tile is still off by O(max |X|).
 K1_ILL_REL, K1_ILL_RATIO, K1_ILL_TRIALS = 1e-2, 2.0, 32
 # max |Δz| in log-depth of K2 vs its plain version. Sound runs differ only in
 # the order of the dot products' sums (1.6e-6 at the PCG's tolerance, 1.7e-5
@@ -730,11 +758,13 @@ def check_slice(out, inputs):
 
 # ---- kernel phases ----
 
-def cuda_ms(fn, reps):
-    """Mean device time of fn() in ms over reps calls, after one warm call."""
+def cuda_ms(fn, reps, warm=True):
+    """Mean device time of fn() in ms over reps calls, after one warm call
+    (warm=False where the caller has just run fn on the same inputs)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     e0.record()
@@ -871,9 +901,11 @@ def k1_many_check(S, Bm, rel, what, f64=False):
     f64, also the kernel's and the plain version's max relative error and
     residual against the float64 solve, as medians over
     rounding_ensemble(S, K1_ILL_TRIALS), the kernel's within K1_ILL_RATIO
-    times the plain version's, and max |ΔX| / max |X| within the larger of
+    times the plain version's, max |ΔX| / max |X| within the larger of
     rel and K1_ILL_RATIO times the plain version's relative distance from
-    the float64 solve on S. Returns (max |ΔX|, a line)."""
+    the float64 solve on S, and max |ΔX| within the larger of K1_TOL and
+    2·K1_ILL_RATIO times the plain version's median relative distance times
+    max |X| (K1_ILL_REL's note). Returns (max |ΔX|, a line)."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
@@ -895,14 +927,15 @@ def k1_many_check(S, Bm, rel, what, f64=False):
         gaps = [f64_gaps(S_t, Bm, X if t == 0 else cholesky.cholesky_solve(S_t, Bm))
                 + f64_gaps(S_t, Bm, ref if t == 0 else cholesky.cholesky_solve_plain(S_t, Bm))
                 for t, S_t in enumerate(rounding_ensemble(S, K1_ILL_TRIALS))]
-        rel_bound = max(rel, K1_ILL_RATIO * gaps[0][2])  # K1_ILL_REL's note
-    else:
-        rel_bound = rel
-    line = (f"{what}: max|kernel - plain| {err:.3e} (tolerance {K1_TOL}), relative {rel_err:.2e} (tolerance "
-            f"{rel_bound:.3g}), residual {res:.2e} (tolerance {rel}), max|X| {float(ref.abs().max()):.3g}")
-    ok = bool(torch.isfinite(X).all()) and err <= K1_TOL and rel_err <= rel_bound and res <= rel
-    if f64:
         e_k, r_k, e_p, r_p = np.median(np.array(gaps), axis=0)
+        rel_bound = max(rel, K1_ILL_RATIO * gaps[0][2])  # K1_ILL_REL's note
+        abs_bound = max(K1_TOL, 2 * K1_ILL_RATIO * e_p * float(ref.abs().max()))
+    else:
+        rel_bound, abs_bound = rel, K1_TOL
+    line = (f"{what}: max|kernel - plain| {err:.3e} (tolerance {abs_bound:.3g}), relative {rel_err:.2e} (tolerance "
+            f"{rel_bound:.3g}), residual {res:.2e} (tolerance {rel}), max|X| {float(ref.abs().max()):.3g}")
+    ok = bool(torch.isfinite(X).all()) and err <= abs_bound and rel_err <= rel_bound and res <= rel
+    if f64:
         line += (f"; against the float64 solve, medians over S and {K1_ILL_TRIALS - 1} copies at float32's rounding: "
                  f"kernel {e_k:.2e} relative, residual {r_k:.2e}; plain {e_p:.2e}, {r_p:.2e} (the kernel's within "
                  f"{K1_ILL_RATIO}x the plain version's; on S alone kernel {gaps[0][0]:.2e}, plain {gaps[0][2]:.2e})")
@@ -2612,7 +2645,10 @@ def check_path_kernels(phase, kept, rec, dev, pris=None, many_cols=None, k2_budg
     many_cols right-hand sides when given (the kernel still timed on all).
     With k2_budget (the ill-conditioned integrations of K2_SHORT's note),
     K2 runs for the iterations its tolerance took at most, on every lane,
-    and is held by k2_f64_check. Returns {kernel: (ms, plain ms)}."""
+    and is held by k2_f64_check. The plain versions are timed without a
+    warm call where their check has just run them on the same inputs
+    (all but K1 many on its first many_cols columns). Returns
+    {kernel: (ms, plain ms)}."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
@@ -2623,7 +2659,7 @@ def check_path_kernels(phase, kept, rec, dev, pris=None, many_cols=None, k2_budg
     _, _, line = k1_check(S, b, K1_REL[0.01], f"K1 at the {phase}'s largest dense BA, the last of them "
                           f"(K={S.shape[0]}, condition number {kappa:.3g})")
     times = {"K1": (cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20),
-                    cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2))}
+                    cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), 2, warm=False))}
     print(line)
     S, Bm = kept["K1 many"]["args"]
     kappa = float(torch.linalg.cond(S.double()))
@@ -2632,7 +2668,7 @@ def check_path_kernels(phase, kept, rec, dev, pris=None, many_cols=None, k2_budg
                             f"K1 many at the {phase}'s largest point-covariance solve (K={S.shape[0]}, "
                             f"N={Bm.shape[1]}{cols}, condition number {kappa:.3g})", f64=True)
     times["K1 many"] = (cuda_ms(lambda: cholesky.cholesky_solve(S, Bm), 10),
-                        cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 2))
+                        cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 2, warm=many_cols is not None))
     print(line)
     for name in ("K2 widest", "K2 busiest"):
         st, b2, dg, z, iters, tol, active = kept[name]["args"]
@@ -2646,11 +2682,12 @@ def check_path_kernels(phase, kept, rec, dev, pris=None, many_cols=None, k2_budg
             k2 = (st, b2, dg, z, iters, tol)
             k2_pcg_check(what, k2, active)
         times[name] = (cuda_ms(lambda: bini_fused.pcg(*k2, active), 5),
-                       cuda_ms(lambda: bini_fused.pcg_plain(*k2, active), 1))
+                       cuda_ms(lambda: bini_fused.pcg_plain(*k2, active), 1, warm=False))
     pris = [rec.images[i].priors for i in rec.reg_image_ids()] if pris is None else pris
     k3 = scene_k3_args(rec, pris, dev)
     k3_check(f"{phase}, int_covs of the final map", k3)
-    times["K3"] = (cuda_ms(lambda: bini_diag.deflated_pcg(*k3), 2), cuda_ms(lambda: bini_diag.deflated_pcg_plain(*k3), 1))
+    times["K3"] = (cuda_ms(lambda: bini_diag.deflated_pcg(*k3), 2),
+                   cuda_ms(lambda: bini_diag.deflated_pcg_plain(*k3), 1, warm=False))
     print(f"{phase} kernels at the phase's shapes, kernel / plain version (ms): "
           + ", ".join(f"{k} {a:.4f} / {p:.3f}" for k, (a, p) in times.items()))
     return times
@@ -2884,20 +2921,31 @@ def render_rgbd_dir(out_dir, seed, n_images, img_wh, focal, baseline, wedge):
 
 
 @contextlib.contextmanager
-def devices_seen():
+def devices_seen(dense=False):
     """Record the device of each pipeline stage's work as it runs: the
     detector's images, the matcher's descriptors, the verification's device
-    and the mapper's. Yields a dict stage -> set of device types."""
+    and the mapper's; with dense, also the NCC flow's images and the sky
+    heuristic's mask. Yields a dict stage -> set of device types."""
     import torch
 
     from mpsfm_tpu_torch import pipeline
+    from mpsfm_tpu_torch.extraction import masks
     from mpsfm_tpu_torch.extraction.features import classical
-    from mpsfm_tpu_torch.extraction.matchers import nn
+    from mpsfm_tpu_torch.extraction.matchers import dense_ncc, nn
     from mpsfm_tpu_torch.scene import correspondences
 
-    seen = {k: set() for k in ("features", "matches", "populate", "mapper")}
+    seen = {k: set() for k in ("features", "matches", "populate", "mapper") + (("dense", "masks") if dense else ())}
     orig = (classical.detect_describe, nn.match, correspondences.estimate_two_view_geometry_batch,
-            pipeline.MpsfmMapper)
+            pipeline.MpsfmMapper, dense_ncc.ncc_flow, masks.sky_mask_heuristic)
+
+    def flow(a, b, *args, **k):
+        seen["dense"].add(a.device.type)
+        return orig[4](a, b, *args, **k)
+
+    def sky(*args, **k):
+        out = orig[5](*args, **k)
+        seen["masks"].add(out.device.type)
+        return out
 
     def detect(imgs, *a, **k):
         seen["features"].add(imgs.device.type)
@@ -2918,11 +2966,13 @@ def devices_seen():
 
     classical.detect_describe, nn.match, correspondences.estimate_two_view_geometry_batch = detect, match, verify
     pipeline.MpsfmMapper = mapper
+    if dense:
+        dense_ncc.ncc_flow, masks.sky_mask_heuristic = flow, sky
     try:
         yield seen
     finally:
         (classical.detect_describe, nn.match, correspondences.estimate_two_view_geometry_batch,
-         pipeline.MpsfmMapper) = orig
+         pipeline.MpsfmMapper, dense_ncc.ncc_flow, masks.sky_mask_heuristic) = orig
 
 
 def run_pipeline(data_dir, conf, dev, cache_dir=None):
@@ -3098,6 +3148,284 @@ def pipeline_card_vs_cpu(dev):
             or len(g["registered"]) < cfg["n_images"] - 1):
         raise AssertionError(line)
     return summ
+
+
+# ---- the extraction modes off the main path (slice 10): dense NCC matches, dense-anchored matches,
+# pair-depth priors, sky masks ----
+
+# (a) the pipeline phase's geometry (640×480, focal 520, baseline 0.18, the wedge) cut to 5 images: 10 pairs,
+# at most 4096 dense matches each; mapped under the pipeline conf in the sparse+dense+measured mode with the
+# heuristic sky masks, after a warm-up on its first 2 images (every stage at 640×480)
+DENSE = dict(PIPELINE, n_images=5)
+DENSE_CONF = {**PIPELINE_CONF, "matches_mode": "sparse+dense+measured",
+              "extractors": {**PIPELINE_CONF["extractors"], "masks": "heuristic"}}
+DENSE_WARM_IMAGES = 2
+# its bounds (registered images, ATE, points): the points' floor ~90% of the JAX package's count over the
+# same render on the CPU (5/5, 41 124 points, ATE 0.003413; the port on the card: 5/5, 41 349, 0.005082)
+DENSE_FULL_BOUNDS = (5, 0.02, 37000)
+# (b) the dense-anchored matcher in the sparse+measured mode and (c) the pair-depth mode, on the small
+# scene under the e2e conf: >= n - 1 registered (tests/test_dense_retrieval_masks.py's and
+# tests/test_pipeline_e2e.py's bounds); the anchored matches' share within ANCHOR_FLOW_PX of their
+# pair's median flow above ANCHOR_INLIERS (test_dense_anchored_sparse_mode's)
+ANCHOR_CONF = {**E2E_CONF, "extractors": {**E2E_CONF["extractors"], "matcher": "dense_anchor"}}
+PAIR_DEPTH_CONF = {**E2E_CONF, "matches_mode": "sparse+measured+depth"}
+ANCHOR_INLIERS, ANCHOR_FLOW_PX = 0.6, 15.0
+# (d) card against CPU: the NCC flows equal at NCC_FLOW_SHARE of the grid, the certainty within
+# NCC_CERT_TOL where they are; masks equal at MASK_SHARE of the pixels; the net's input within
+# SESSION_TOL (the CPU tests' bounds against the JAX package)
+NCC_FLOW_SHARE, NCC_CERT_TOL, MASK_SHARE, SESSION_TOL = 0.99, 1e-5, 0.999, 1e-4
+# the full phase, and its rehearsal on the CPU at small sizes
+DENSE_SIZES = {
+    "full": dict(scene=DENSE, warm=DENSE_WARM_IMAGES, bounds=DENSE_FULL_BOUNDS, small=PIPELINE_SMALL,
+                 sky_hw=(480, 640), onnx_hw=(701, 800)),
+    "small": dict(scene=dict(PIPELINE_SMALL, n_images=3, img_wh=(160, 120), focal=130.0), warm=2,
+                  bounds=(3, PIPELINE_ATE, 300), small=dict(PIPELINE_SMALL, n_images=4, img_wh=(160, 120), focal=130.0),
+                  sky_hw=(120, 160), onnx_hw=(641, 700)),
+}
+
+
+class FakeSkySession:
+    """tests/test_dense_retrieval_masks.py's stand-in for an onnxruntime
+    session of the sky net: the onnxruntime interface, the probability the
+    mean of the input's channels (bright rows are sky); keeps its input."""
+
+    class _Input:
+        name = "input"
+
+    def __init__(self):
+        self.seen = None
+
+    def get_inputs(self):
+        return [self._Input()]
+
+    def run(self, outputs, feed):
+        x = feed["input"]
+        if x.shape != (1, 3, 320, 320) or x.dtype != np.float32:
+            raise AssertionError(f"sky net input {x.shape} {x.dtype}")
+        self.seen = x
+        return [x[0].mean(0)[None, None]]
+
+
+def sky_image(rng, hw):
+    """(H, W, 3) float32 image: a bright-blue band on top of a textured ground."""
+    H, W = hw
+    img = rng.uniform(0, 0.5, (H, W, 3)).astype(np.float32)
+    band = H // 3
+    img[:band] = np.array([0.5, 0.6, 0.9], np.float32) + rng.normal(0, 0.003, (band, W, 3)).astype(np.float32)
+    return img
+
+
+def onnx_image(rng, hw):
+    """The fake session's test image: (H, W, 3) uint8, bright sky above dark ground."""
+    H, W = hw
+    img = np.zeros((H, W, 3), np.uint8)
+    img[: 3 * H // 7] = 235
+    img[3 * H // 7:] = 40
+    return np.clip(img + rng.integers(0, 8, img.shape), 0, 255).astype(np.uint8)
+
+
+def anchored_inlier_share(cache, conf):
+    """Share of the dense-anchored matches of every pair within
+    ANCHOR_FLOW_PX (both axes) of their pair's median flow, and the
+    matches' count."""
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.utils import io
+
+    fmt = conf["cache_format"]
+    feats = io.store_path(cache, f"feats-{conf['extractors']['features']}", fmt)
+    anchored = io.store_path(cache, "matches-dense_ncc-anchored", fmt)
+    inl, n = 0, 0
+    for a, b in io.read_pairs(Path(cache) / "pairs.txt"):
+        m, _ = io.get_matches(anchored, a, b)
+        if len(m) == 0:
+            continue
+        flow = io.get_keypoints(feats, b)[m[:, 1]] - io.get_keypoints(feats, a)[m[:, 0]]
+        inl += int((np.abs(flow - np.median(flow, axis=0)) < ANCHOR_FLOW_PX).all(1).sum())
+        n += len(m)
+    return inl / max(n, 1), n
+
+
+def dense_full_run(dev, counted, size):
+    """(a): the sparse+dense+measured mode with sky masks over the full
+    render, a warm-up on its first images, then measured with the launch
+    counts at 0. Returns (summary, launches, kept kernel arguments, the
+    map); the summary holds the first two images, gray in [0, 1]
+    ("pair")."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.utils import io
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    cfg = dict(size["scene"])
+    min_reg, ate_bound, min_points = size["bounds"]
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = render_rgbd_dir(Path(tmp) / "scene", **cfg)
+        shutil.copytree(Path(tmp) / "scene", Path(tmp) / "warm")
+        for i in range(size["warm"], cfg["n_images"]):
+            (Path(tmp) / "warm" / "images" / f"im{i:02d}.png").unlink()
+            (Path(tmp) / "warm" / "depth" / f"im{i:02d}.npy").unlink()
+        _, _, warm_s = run_pipeline(Path(tmp) / "warm", DENSE_CONF, dev)
+        TIMERS.reset()
+        for k in counted.values():
+            k.launches = 0
+        with devices_seen(dense=True) as seen, path_kernel_args() as kept:
+            rec, ok, wall = run_pipeline(Path(tmp) / "scene", DENSE_CONF, dev)
+        launches = {name: k.launches for name, k in counted.items()}
+        pipe = {k: round(v, 4) for k, v in TIMERS.totals.items() if k.startswith("pipe.")}
+        ate = ate_rmse(rec, scene.poses) if rec.num_reg_images() >= 3 else float("inf")
+        gap = check_written_model(rec, Path(tmp) / "scene" / "sfm_outputs")
+        cache = Path(tmp) / "scene" / "cache"
+        dense = io.store_path(cache, "dense-dense_ncc", DENSE_CONF["cache_format"])
+        per_pair = [len(io.get_dense_pair(dense, a, b)[2]) for a, b in io.read_pairs(cache / "pairs.txt")]
+        with io.open_store(io.store_path(cache, "masks", DENSE_CONF["cache_format"])) as f:
+            sky = {n: round(float(1 - np.asarray(f[n]).mean()), 4) for n in f.keys()}
+        pair = [io.read_image(Path(tmp) / "scene" / "images" / f"im{i:02d}.png", True).astype(np.float32) / 255.0
+                for i in (0, 1)]
+    out = dict(ok=bool(ok), registered=rec.num_reg_images(), images=rec.num_images(), points=rec.num_points3D(),
+               ate=ate, wall=wall, frames_per_s=rec.num_images() / wall, pipe=pipe, devices=seen,
+               dense_per_pair=per_pair, warm_s=warm_s, pair=pair)
+    print(f"dense modes (a): {cfg['n_images']} PNG images {cfg['img_wh'][0]}x{cfg['img_wh'][1]} (the pipeline phase's "
+          f"geometry), sparse+dense+measured, heuristic sky masks; warm-up run ({size['warm']} images) {warm_s:.3f} s wall")
+    print(f"dense modes (a): {wall:.3f} s wall, {out['frames_per_s']:.4f} frames/s; registered {out['registered']}/"
+          f"{out['images']} (bound {min_reg}); {out['points']} points (bound {min_points}); ATE {ate:.6f} (bound "
+          f"{ate_bound}); written model read back, pose gap {gap:.2e}; dense matches a pair {per_pair} (sum "
+          f"{sum(per_pair)}); sky share of each mask {json.dumps(sky)}; devices "
+          f"{json.dumps({k: sorted(v) for k, v in seen.items()})}; launches {json.dumps(launches)}")
+    print(f"dense modes (a) pipe.* phases (s wall): {json.dumps(pipe)}")
+    print("dense modes (a) phase timers (s wall x calls):\n" + TIMERS.summary())
+    if any(v != {dev.type} for v in seen.values()):
+        raise AssertionError(f"dense modes (a): stages off the device: {seen}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched in the dense modes phase")
+    if not (ok and out["registered"] >= min_reg and ate < ate_bound and out["points"] >= min_points):
+        raise AssertionError(f"dense modes (a): {out} (bounds: >= {min_reg} registered, ATE < {ate_bound}, >= "
+                             f"{min_points} points)")
+    return out, launches, kept, rec
+
+
+def dense_small_modes(dev, size):
+    """(b) the dense-anchored matcher and (c) the pair-depth mode on the
+    small scene. Returns their summaries."""
+    import tempfile
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.utils import io
+
+    cfg = dict(size["small"])
+    res = {}
+    for what, conf in (("anchored", ANCHOR_CONF), ("pair depth", PAIR_DEPTH_CONF)):
+        with tempfile.TemporaryDirectory() as tmp:
+            scene = render_rgbd_dir(Path(tmp) / "scene", **cfg)
+            rec, ok, wall = run_pipeline(Path(tmp) / "scene", conf, dev)
+            cache = Path(tmp) / "scene" / "cache"
+            r = dict(ok=bool(ok), registered=rec.num_reg_images(), points=rec.num_points3D(), wall=wall,
+                     ate=ate_rmse(rec, scene.poses) if rec.num_reg_images() >= 3 else float("inf"))
+            if what == "anchored":
+                r["inlier_share"], r["matches"] = anchored_inlier_share(cache, conf)
+                held = r["inlier_share"] > ANCHOR_INLIERS
+            else:
+                with io.open_store(io.store_path(cache, "pair-depth-dense_ncc", conf["cache_format"])) as f:
+                    r["depth_entries"] = sum(1 for a in f.keys() for b in f[a].keys() for n in f[a][b].keys()
+                                             if "depth" in f[a][b][n])
+                held = r["depth_entries"] > 0
+        res[what] = r
+        print(f"dense modes ({'b' if what == 'anchored' else 'c'}) {what}, {cfg['n_images']} images "
+              f"{cfg['img_wh'][0]}x{cfg['img_wh'][1]}: {json.dumps(r)}")
+        if not (ok and r["registered"] >= cfg["n_images"] - 1 and held):
+            raise AssertionError(f"dense modes, {what}: {r} (bounds: >= {cfg['n_images'] - 1} registered, "
+                                 f"inlier share > {ANCHOR_INLIERS} / pair depths written)")
+    return res
+
+
+def dense_card_vs_cpu(dev, size, pair):
+    """(d) the NCC flow of one pair of (a)'s images, the sky heuristic and
+    the onnx path (the fake session) on the card and on the CPU; on the
+    card, the NCC flow, a heuristic mask, a guided upsample and a pyrDown
+    ladder timed. Returns the numbers."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.guided_filter import guided_upsample
+    from mpsfm_tpu_torch.extraction.masks import (SkyMask, close5, pyr_down_ladder, sky_candidates,
+                                                  sky_mask_heuristic, top_connected)
+    from mpsfm_tpu_torch.extraction.matchers.dense_ncc import ncc_flow
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED + 13)
+    A, B = (torch.as_tensor(im) for im in pair)
+    fg = [t.cpu() for t in ncc_flow(A.to(dev), B.to(dev))]
+    fc = ncc_flow(A, B)
+    same = (fg[1] == fc[1]).all(1)
+    cert_gap = float((fg[2] - fc[2])[same].abs().max())
+    share = float(same.double().mean())
+    img = sky_image(rng, size["sky_hw"])
+    mg, mc = sky_mask_heuristic(img, device=dev).cpu(), sky_mask_heuristic(img, device=cpu)
+    sky_share = float((mg == mc).double().mean())
+    onnx = onnx_image(rng, size["onnx_hw"])
+    sess = {d.type: FakeSkySession() for d in (dev, cpu)}
+    og, oc = (SkyMask({"backend": "onnx"}, session=sess[d.type], device=d)(onnx) for d in (dev, cpu))
+    onnx_share = float((og == oc).mean())
+    in_gap = float(np.abs(sess[dev.type].seen - sess["cpu"].seen).max())
+    out = dict(ncc_share=share, ncc_cert_gap=cert_gap, ncc_grid=int(same.numel()), sky_share=sky_share,
+               onnx_share=onnx_share, session_gap=in_gap, sky_of_onnx=float(1 - og.mean()))
+    if dev.type == "cuda":
+        Ad, Bd = A.to(dev), B.to(dev)
+        imd = torch.as_tensor(img, device=dev)
+        cand = sky_candidates(imd)
+        top = top_connected(cand)
+        ref = torch.as_tensor(onnx, device=dev).to(torch.float64) / 255.0
+        prob = torch.as_tensor(sess[dev.type].seen[0].mean(0), device=dev)
+        ud = torch.as_tensor(onnx, device=dev)
+        out["ms"] = {"ncc_flow": cuda_ms(lambda: ncc_flow(Ad, Bd), 5),
+                     "sky_mask_heuristic": cuda_ms(lambda: sky_mask_heuristic(imd), 10),
+                     # the heuristic's parts: the filters and rules, the flood fill, the close
+                     "sky.candidates": cuda_ms(lambda: sky_candidates(imd), 10),
+                     "sky.top_connected": cuda_ms(lambda: top_connected(cand), 10),
+                     "sky.close5": cuda_ms(lambda: close5(top), 10),
+                     "guided_upsample": cuda_ms(lambda: guided_upsample(ref, prob, 256), 5),
+                     "pyr_down_ladder": cuda_ms(lambda: pyr_down_ladder(ud), 10)}
+    print(f"dense modes (d), card vs CPU: NCC flow of one {A.shape[1]}x{A.shape[0]} pair, flows equal at {share:.6f} "
+          f"of {out['ncc_grid']} grid points (bound {NCC_FLOW_SHARE}), certainty within {cert_gap:.2e} where equal "
+          f"(bound {NCC_CERT_TOL}); sky heuristic at {size['sky_hw'][1]}x{size['sky_hw'][0]} equal at {sky_share:.6f} "
+          f"(bound {MASK_SHARE}); onnx path (fake session) at {size['onnx_hw'][1]}x{size['onnx_hw'][0]}: mask equal "
+          f"at {onnx_share:.6f} (bound {MASK_SHARE}), net input within {in_gap:.2e} (bound {SESSION_TOL}), sky "
+          f"{out['sky_of_onnx']:.4f}; device ms {json.dumps(out.get('ms'))}")
+    if not (share >= NCC_FLOW_SHARE and cert_gap <= NCC_CERT_TOL and sky_share >= MASK_SHARE
+            and onnx_share >= MASK_SHARE and in_gap <= SESSION_TOL):
+        raise AssertionError(f"dense modes (d), card vs CPU: {out}")
+    return out
+
+
+def dense_modes_phase(dev, counted, size="full"):
+    """The extraction modes off the main path on the card: (a) the port's
+    reconstruct in the sparse+dense+measured mode with heuristic sky masks
+    over DENSE (5 images of 640×480), after a warm-up on its first 2 images,
+    with the launch counts at 0 just before: every stage on the card (the
+    NCC flow and the masks too), each kernel launched, DENSE_FULL_BOUNDS,
+    the written model read back; each kernel held to its plain version at
+    the run's shapes (check_path_kernels); (b) the dense-anchored matcher
+    and (c) the pair-depth mode on the small scene; (d) the NCC flow, the
+    sky heuristic and the onnx path card against CPU, timed on the card.
+    size: "full", or "small" for a rehearsal on the CPU (counted {}).
+    Returns (summary, launches, the K1 row at the run's reduced system)."""
+    import torch
+
+    dev = torch.device(dev)
+    size = DENSE_SIZES[size]
+    out, launches, kept, rec = dense_full_run(dev, counted, size)
+    k1 = None
+    if dev.type == "cuda":
+        out["kernel_ms"] = check_path_kernels("dense modes phase", kept, rec, dev)
+        S, b = kept["K1"]["args"]
+        k1 = k1_row(S, b, f"K1 at the dense modes phase's last global BA (K={S.shape[0]})")
+        print(k1["line"])
+    del kept, rec
+    out["small"] = dense_small_modes(dev, size)
+    out["card_vs_cpu"] = dense_card_vs_cpu(dev, size, out.pop("pair"))
+    return out, launches, k1
 
 
 # ---- the sparse BA solver (slice 8) ----
@@ -4128,6 +4456,7 @@ def main():
     mapping_card_vs_cpu(dev)
     _, pipeline_launches = pipeline_phase(dev, counted)
     pipeline_card_vs_cpu(dev)
+    _, dense_launches, dense_k1 = dense_modes_phase(dev, counted)
     _, sparse_launches = sparse_ba_phase(dev, counted)
     dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
@@ -4145,6 +4474,9 @@ def main():
         # no TPU kernel: on the JAX path _diag_inverse_at_impl runs as XLA ops
         ("bini_diag_pcg", "mpsfm_tpu_torch/csrc/bini_diag.cu", "mpsfm_tpu/integration/bini.py:592",
          k3, launches["bini_diag"]),
+        # K1 at the dense modes phase's last global BA: that phase's launches and shape
+        ("cholesky_solve (dense modes phase)", "mpsfm_tpu_torch/csrc/cholesky.cu",
+         "mpsfm_tpu/ba/pallas_cholesky.py:25", dense_k1, dense_launches["cholesky"]),
         # K1 on the distributed BA's dense-T route (rank 0 of two): its own path's launches and shape
         ("cholesky_solve (sharded dense-T route)", "mpsfm_tpu_torch/csrc/cholesky.cu",
          "mpsfm_tpu/ba/pallas_cholesky.py:25", dist_k1, dist_k1_launches),
@@ -4160,6 +4492,7 @@ def main():
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")
+    print(f"dense modes launches: {json.dumps(dense_launches)}")
     print(f"sparse BA launches: {json.dumps(sparse_launches)}")
     print(f"distributed BA launches: K1 {dist_k1_launches} on the dense-T route; the mapper on rank 0 "
           f"{json.dumps(dist_mapper_launches)}")

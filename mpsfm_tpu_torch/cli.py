@@ -30,7 +30,8 @@ def main(argv=None):
         "--extract",
         nargs="*",
         default=[],
-        help="artifact classes to force re-extraction: f(eatures) m(atches) d(epth) p(airs)",
+        help="artifact classes to force re-extraction: f(eatures) m(atches, dense ones too) d(epth, pair depth too) "
+        "p(airs) k (sky masks)",
     )
     ap.add_argument("--verbose", type=int, default=0)
     ap.add_argument(

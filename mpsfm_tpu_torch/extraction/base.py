@@ -11,9 +11,9 @@ extraction and mapping. The fork's measured-RGB-D injection
 The caches are HDF5 files (``cache_format: h5``, the JAX package's, which
 either package reads) or directory stores (``cache_format: npy``, for a
 host without h5py); utils.io.open_store picks by the path's suffix. The
-detector and the matcher run on ``device``. Not ported yet, and raising:
-SuperPoint, LightGlue and NetVLAD (ROADMAP queue 1 item 6), the sky masks
-and the dense, dense-anchored and pair-depth matching modes (item 7).
+detector, the matchers (the mutual NN and the dense NCC flow) and the sky
+masks run on ``device``. Not ported yet, and raising: SuperPoint,
+LightGlue, NetVLAD and the neural dense matchers (ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,9 +25,11 @@ import numpy as np
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.config import BaseClass
 from mpsfm_tpu_torch.extraction.features.classical import ClassicalFeatures
+from mpsfm_tpu_torch.extraction.masks import SkyMask
+from mpsfm_tpu_torch.extraction.matchers.dense_ncc import DenseNCCMatcher, assign_flow_to_keypoints
 from mpsfm_tpu_torch.extraction.matchers.nn import MutualNNMatcher
 from mpsfm_tpu_torch.extraction.pairs import pairs_exhaustive, pairs_from_retrieval, pairs_sequential
-from mpsfm_tpu_torch.extraction.priors import get_prior_backend, normals_from_depth
+from mpsfm_tpu_torch.extraction.priors import MissingDepthError, get_prior_backend, normals_from_depth
 from mpsfm_tpu_torch.parallel.sharded_inference import run_sharded_batches
 from mpsfm_tpu_torch.utils import io
 from mpsfm_tpu_torch.utils.workqueue import WorkQueue
@@ -35,13 +37,24 @@ from mpsfm_tpu_torch.utils.workqueue import WorkQueue
 FEATURE_MODELS = {"classical": ClassicalFeatures}
 MATCHER_MODELS = {"nn": MutualNNMatcher}
 NEURAL = "not ported yet (ROADMAP queue 1 item 6: neural extraction)"
-OFF_PATH = "not ported yet (ROADMAP queue 1 item 7: extraction modes off the main path)"
+NEURAL_DENSE = ("two_view", "mast3r_class", "mast3r", "warp", "roma_class", "roma")
+
+
+def get_dense_matcher(name: str, conf=None, device="cuda"):
+    """Dense matcher registry: the classical NCC flow; the JAX package's
+    neural ones (MASt3R-class, RoMa-class) are not ported yet."""
+    if name in ("dense_ncc", "ncc"):
+        return DenseNCCMatcher(conf, device=device)
+    if name in NEURAL_DENSE:
+        raise NotImplementedError(f"dense matcher {name!r}: {NEURAL}")
+    raise ValueError(f"unknown dense matcher '{name}'")
 
 
 class Extraction(BaseClass):
     default_conf = {
         "features": "classical",  # superpoint once weights are present
-        "matcher": "nn",
+        "matcher": "nn",  # nn | dense_anchor (the dense flow at the detected keypoints)
+        "dense_matcher": "dense_ncc",
         "sharded_inference": True,  # shape buckets shared out over the ranks of the process group
         "matches_mode": "sparse",  # sparse | dense | sparse+dense (+measured)
         "depth": "oracle",
@@ -50,9 +63,11 @@ class Extraction(BaseClass):
         "n_retrieval": 20,
         "seq_overlap": 10,
         "retrieval": "grid",  # grid | netvlad (not ported)
-        "masks": "none",  # none | heuristic | onnx (sky masking; only none is ported)
+        "masks": "none",  # none | heuristic | onnx (sky masking)
+        "mask_conf": {},
         "feature_conf": {},
         "matcher_conf": {},
+        "dense_matcher_conf": {},
         "depth_conf": {},
         "resize_max": 1600,
         "cache_format": "h5",  # h5 (the JAX package's HDF5) | npy (a directory of .npy files)
@@ -73,7 +88,10 @@ class Extraction(BaseClass):
         self.paths = {
             "sfeats": store(f"feats-{self.conf.features}"),
             "smatches": store(f"matches-{self.conf.matcher}"),
+            "dpairs": store(f"dense-{self.conf.dense_matcher}"),
+            "pair_depth": store(f"pair-depth-{self.conf.dense_matcher}"),
             "depth": store(f"depth-{self.conf.depth}"),
+            "masks": store("masks"),
             "pairs": self.cache_dir / "pairs.txt",
         }
 
@@ -142,16 +160,39 @@ class Extraction(BaseClass):
 
     # ---------- sky masks (reference extract_masks, base.py:345-354) ----------
     def extract_masks(self):
-        """Per-image sky masks; only the 'none' backend is ported."""
+        """Per-image sky masks -> the masks store, one bool dataset an image
+        at the root (True = valid/non-sky); skipped when the backend is
+        'none'. Cached like every other artifact ('k' in --extract forces
+        recompute)."""
         if self.conf.masks == "none":
             return None
-        raise NotImplementedError(f"sky masks {self.conf.masks!r}: {OFF_PATH}")
+        path = self.paths["masks"]
+        names = self.scene_parser.image_names()
+        if path.exists() and "k" not in self.extract:
+            with io.open_store(path, "r") as f:
+                names = [n for n in names if str(n) not in f]
+        if not names:
+            return path
+        model = SkyMask({"backend": self.conf.masks, **dict(self.conf.mask_conf)}, device=self.device)
+        for name in names:
+            mask = model(io.read_image(self.scene_parser.image_path(name)))
+            with io.open_store(path, "a") as f:
+                key = str(name)
+                if key in f:
+                    del f[key]
+                f.create_dataset(key, data=mask.astype(bool), compression="gzip")
+            self.log(f"mask {name}: {(~mask).mean():.1%} sky", level=2)
+        return path
 
     def load_mask(self, name):
         """Valid-region (non-sky) mask for one image, or None."""
-        if self.conf.masks == "none":
+        if self.conf.masks == "none" or not self.paths["masks"].exists():
             return None
-        raise NotImplementedError(f"sky masks {self.conf.masks!r}: {OFF_PATH}")
+        with io.open_store(self.paths["masks"], "r") as f:
+            key = str(name)
+            if key not in f:
+                return None
+            return f[key][:]
 
     # ---------- features ----------
     def extract_features(self):
@@ -219,6 +260,97 @@ class Extraction(BaseClass):
         writer.join()
         return path
 
+    # ---------- dense matches (reference match_dense_2view.py) ----------
+    def extract_dense_matches(self, pairs):
+        """Per-pair dense matching; writes keypoints of both images + the
+        match certainties into the dense cache (dfeats/dmatches streams of
+        the reference collapsed into one store keyed by pair)."""
+        path = self.paths["dpairs"]
+        existing = io.pair_keys(path) if path.exists() and "m" not in self.extract else set()
+        todo = [p for p in pairs if io.names_to_pair(*p) not in existing]
+        if not todo:
+            return path
+        matcher = get_dense_matcher(self.conf.dense_matcher, dict(self.conf.dense_matcher_conf), device=self.device)
+        for name0, name1 in todo:
+            g0, s0, _ = self._load_gray(name0)
+            g1, s1, _ = self._load_gray(name1)
+            out = matcher(g0, g1)
+            io.write_dense_pair(path, name0, name1, (out["keypoints0"] + 0.5) / s0 - 0.5,
+                                (out["keypoints1"] + 0.5) / s1 - 0.5, out["certainty"])
+            self.log(f"dense {name0}-{name1}: {len(out['certainty'])}", level=2)
+        return path
+
+    def extract_matches_dense_anchored(self, pairs):
+        """RoMa-sparse mode: dense flow assigned to detected sparse
+        keypoints (<=2px), written as a regular sparse match stream."""
+        self.extract_dense_matches(pairs)
+        path = io.store_path(self.cache_dir, f"matches-{self.conf.dense_matcher}-anchored", self.conf.cache_format)
+        existing = io.pair_keys(path) if path.exists() and "m" not in self.extract else set()
+        for name0, name1 in pairs:
+            if io.names_to_pair(name0, name1) in existing:
+                continue
+            k0, k1, cert = self.load_dense_pair(name0, name1)
+            kpsA = io.get_keypoints(self.paths["sfeats"], name0)
+            kpsB = io.get_keypoints(self.paths["sfeats"], name1)
+            out = assign_flow_to_keypoints(k0, k1 - k0, cert, kpsA, kpsB)
+            io.write_matches(path, name0, name1, out["matches0"], out["matching_scores0"])
+        self.paths["smatches"] = path
+        return path
+
+    def extract_pair_depths(self, pairs):
+        """'depth' matching mode: per-pair depth maps with a variance
+        (reference match_dense_2view.py:191-199 + mast3r.py:303-315; the
+        scene-level consumer picks the best-confidence pair per image).
+
+        The JAX package prefers a two-view depth predictor (MASt3R's
+        pointmap depth) for images without sensor depth; none is ported
+        (ROADMAP queue 1 item 6) and the NCC flow has none, so each image
+        takes its depth from the prior backend, sensor depth where the
+        scene has it, at a fixed 1% relative uncertainty (the fork's
+        measured-depth calibration)."""
+        path = self.paths["pair_depth"]
+        existing = io.pair_keys(path) if path.exists() and "d" not in self.extract else set()
+        for name0, name1 in pairs:
+            if io.names_to_pair(name0, name1) in existing:
+                continue
+            kws = {name: self.scene_parser.prior_inputs(name) for name in (name0, name1)}
+            if kws[name0].get("depth_measured") is None and self.conf.dense_matcher in NEURAL_DENSE:
+                # where the first image has no sensor depth, the JAX package takes both from the matcher
+                raise NotImplementedError(f"two-view depth of {self.conf.dense_matcher!r}: {NEURAL}")
+            per_image = {}
+            for name, kw in kws.items():
+                depth = kw.get("depth_measured")
+                if depth is None:
+                    if self.depth_backend is None:
+                        self.depth_backend = get_prior_backend(self.conf.depth, dict(self.conf.depth_conf))
+                    try:
+                        # the ported backends (measured, oracle) take no image
+                        out = self.depth_backend(None, **kw)
+                    except MissingDepthError:  # an image without sensor depth is skipped, as in the reference
+                        out = None
+                    if out is None:
+                        continue
+                    depth = out["depth"]
+                depth = np.asarray(depth, np.float32)
+                valid = depth > 0
+                variance = np.square(0.01 * np.maximum(depth, 1e-6))
+                variance[~valid] = 1e6
+                per_image[name] = {"depth": depth, "valid": valid, "variance": variance}
+            if per_image:
+                io.write_pair_mono_map(path, name0, name1, per_image)
+                self.log(f"pair depth {name0}-{name1}", level=2)
+        return path
+
+    def load_mono_from_pairs(self, name, pairs):
+        """Best-confidence per-pair depth for one image (reference
+        utils/io.py:17-42)."""
+        if not self.paths["pair_depth"].exists():
+            return None
+        return io.get_mono_map_from_pairs(self.paths["pair_depth"], name, pairs)
+
+    def load_dense_pair(self, name0, name1):
+        return io.get_dense_pair(self.paths["dpairs"], name0, name1)
+
     # ---------- monocular priors ----------
     def extract_mono(self):
         names = self.scene_parser.image_names()
@@ -254,15 +386,38 @@ class Extraction(BaseClass):
 
     # ---------- load for the mapper ----------
     def load_correspondence_inputs(self, pairs):
-        """Per-image keypoints + per-pair matches of the sparse mode."""
-        if "dense" in self.conf.matches_mode or "sparse" not in self.conf.matches_mode:
-            raise NotImplementedError(f"matches_mode {self.conf.matches_mode!r}: {OFF_PATH}")
-        keypoints = {name: io.get_keypoints(self.paths["sfeats"], name) for name in self.scene_parser.image_names()}
+        """Per-image keypoints + per-pair matches. In dense modes, dense
+        grid keypoints are appended after the sparse set with index
+        offsets (reference gather_dense_2view,
+        scene/correspondences/utils.py:101-173)."""
+        mode = self.conf.matches_mode
+        use_sparse = "sparse" in mode
+        names = self.scene_parser.image_names()
+        if use_sparse:
+            keypoints = {name: io.get_keypoints(self.paths["sfeats"], name) for name in names}
+        else:
+            keypoints = {name: np.zeros((0, 2)) for name in names}
         matches, scores = {}, {}
-        for name0, name1 in pairs:
-            m, s = io.get_matches(self.paths["smatches"], name0, name1)
-            matches[(name0, name1)] = m
-            scores[frozenset((name0, name1))] = s
+        if use_sparse:
+            for name0, name1 in pairs:
+                m, s = io.get_matches(self.paths["smatches"], name0, name1)
+                matches[(name0, name1)] = m
+                scores[frozenset((name0, name1))] = s
+        if "dense" in mode:
+            for name0, name1 in pairs:
+                k0, k1, cert = self.load_dense_pair(name0, name1)
+                off0 = len(keypoints[name0])
+                off1 = len(keypoints[name1])
+                keypoints[name0] = np.concatenate([keypoints[name0], k0])
+                keypoints[name1] = np.concatenate([keypoints[name1], k1])
+                dm = np.stack([off0 + np.arange(len(k0)), off1 + np.arange(len(k1))], -1).astype(np.int64)
+                key = frozenset((name0, name1))
+                if (name0, name1) in matches:
+                    matches[(name0, name1)] = np.concatenate([matches[(name0, name1)], dm])
+                    scores[key] = np.concatenate([scores[key], cert])
+                else:
+                    matches[(name0, name1)] = dm
+                    scores[key] = cert
         return keypoints, matches, scores
 
     def load_mono(self, name):

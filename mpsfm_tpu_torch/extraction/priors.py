@@ -40,6 +40,11 @@ def normals_from_depth(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
     return n
 
 
+class MissingDepthError(ValueError):
+    """A depth backend was asked for an image that has no depth it can read
+    (the measured backend, for an image without sensor depth)."""
+
+
 class MeasuredDepthBackend:
     """RGB-D measured depth (fork parity): sensor depth maps, 1% relative
     uncertainty, normals derived geometrically."""
@@ -51,7 +56,8 @@ class MeasuredDepthBackend:
         self.rel_uncertainty = self.conf.get("rel_uncertainty", 0.01)
 
     def __call__(self, image_rgb, depth_measured=None, intrinsics=None, **kw):
-        assert depth_measured is not None, "measured backend needs sensor depth"
+        if depth_measured is None:
+            raise MissingDepthError("measured backend needs sensor depth")
         d = np.asarray(depth_measured, np.float64)
         valid = d > 0
         var = (d * self.rel_uncertainty) ** 2

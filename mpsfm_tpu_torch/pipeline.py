@@ -19,7 +19,7 @@ from pathlib import Path
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.config import BaseClass, Config
 from mpsfm_tpu_torch.datasets.simple import SimpleParser
-from mpsfm_tpu_torch.extraction.base import OFF_PATH, Extraction
+from mpsfm_tpu_torch.extraction.base import Extraction
 from mpsfm_tpu_torch.mapper import MpsfmMapper
 from mpsfm_tpu_torch.scene.correspondences import Correspondences
 from mpsfm_tpu_torch.scene.image_priors import ImagePriors
@@ -55,23 +55,33 @@ class ReconstructionManager(BaseClass):
 
     def __call__(self, extract_only=False):
         mode = self.conf.matches_mode
-        if "sparse" not in mode or "dense" in mode or "depth" in mode.split("+"):
-            raise NotImplementedError(f"matches_mode {mode!r}: {OFF_PATH}")
         # 1) extraction
         self.extractor.conf["matches_mode"] = mode
         with TIMERS.phase("pipe.extract_pairs"):
             pairs = self.extractor.extract_pairs()
         with TIMERS.phase("pipe.extract_features"):
             self.extractor.extract_features()
-        with TIMERS.phase("pipe.extract_matches"):
-            self.extractor.extract_matches(pairs)
+        if "sparse" in mode:
+            with TIMERS.phase("pipe.extract_matches"):
+                if self.conf.extractors.matcher == "dense_anchor":
+                    # RoMa-sparse mode: dense flow anchored at detected keypoints
+                    self.extractor.extract_matches_dense_anchored(pairs)
+                else:
+                    self.extractor.extract_matches(pairs)
+        if "dense" in mode:
+            with TIMERS.phase("pipe.extract_dense"):
+                self.extractor.extract_dense_matches(pairs)
+        if "depth" in mode:
+            with TIMERS.phase("pipe.extract_pair_depths"):
+                self.extractor.extract_pair_depths(pairs)
         if self.conf.use_priors:
             with TIMERS.phase("pipe.extract_mono"):
                 if "measured" in mode:
                     self.extractor.use_measured()
                 else:
                     self.extractor.extract_mono()
-        self.extractor.extract_masks()
+        with TIMERS.phase("pipe.extract_masks"):
+            self.extractor.extract_masks()
         if extract_only:
             return None, True
 
@@ -88,7 +98,7 @@ class ReconstructionManager(BaseClass):
         # 3) priors
         if self.conf.use_priors:
             with TIMERS.phase("pipe.priors"):
-                self._load_priors(rec)
+                self._load_priors(rec, pairs)
 
         # 4) mapping
         mapper = MpsfmMapper(self.conf.mapper, rec, corr, device=self.device)
@@ -111,7 +121,7 @@ class ReconstructionManager(BaseClass):
         self.log("3d.html is not written: utils/viz.py is not ported (ROADMAP queue 1 item 6)", level=1)
         return rec, ok
 
-    def _load_priors(self, rec):
+    def _load_priors(self, rec, pairs):
         for imid, im in rec.images.items():
             with TIMERS.phase("pipe.priors.load_mono"):
                 mono = self.extractor.load_mono(im.name)
@@ -122,6 +132,17 @@ class ReconstructionManager(BaseClass):
                 for k in ("depth", "depth_variance", "depth2", "depth_variance2", "valid", "valid2")
                 if k in mono
             }
+            if "depth" in self.conf.matches_mode:
+                # 'depth' matching mode: per-pair two-view depth beats
+                # the mono prior (best-confidence pair, reference
+                # utils/io.py:17-42); normals stay from the mono pass.
+                pair_mono = self.extractor.load_mono_from_pairs(im.name, pairs)
+                if pair_mono is not None:
+                    depth_dict = {
+                        "depth": pair_mono["depth"],
+                        "depth_variance": pair_mono["depth_variance"],
+                        "valid": pair_mono["valid"],
+                    }
             normals_dict = {
                 k: mono[k]
                 for k in ("normals", "normals_variance", "normals2", "normals2_variance")

@@ -1,8 +1,8 @@
 """Cache and image IO (port of mpsfm_tpu/utils/io.py) — same schema as the
 reference (mpsfm/utils/io.py) so artifacts interchange for parity testing:
 features (keypoints/descriptors with `uncertainty` attr), matches
-(matches0/matching_scores0), mono maps (depth/variance/normals...), masks,
-pair-name canonicalization.
+(matches0/matching_scores0), dense pairs (keypoints0/keypoints1/certainty),
+mono maps (depth/variance/normals...), masks, pair-name canonicalization.
 
 Two things differ from the JAX package, so that the main path runs on a
 host with neither OpenCV, h5py nor PyYAML:
@@ -460,6 +460,32 @@ def get_matches(path, name0, name1):
         matches = np.flip(matches, -1)
     scores = scores[idx]
     return matches, scores
+
+
+def write_dense_pair(path, name0, name1, keypoints0, keypoints1, certainty):
+    """One pair of a dense-match store: the group "name0/name1" with the
+    keypoints of both images and the matches' certainties (row i of each
+    is one match)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open_store(path, "a") as f:
+        key = names_to_pair(name0, name1)
+        if key in f:
+            del f[key]
+        grp = f.create_group(key)
+        grp.create_dataset("keypoints0", data=np.asarray(keypoints0))
+        grp.create_dataset("keypoints1", data=np.asarray(keypoints1))
+        grp.create_dataset("certainty", data=np.asarray(certainty))
+
+
+def get_dense_pair(path, name0, name1):
+    """(keypoints in name0, keypoints in name1, certainties) of a pair of a
+    dense-match store, whichever order it was written in."""
+    with open_store(path, "r") as f:
+        key, rev = find_pair(f, name0, name1)
+        g = f[key]
+        k0, k1, c = g["keypoints0"][:], g["keypoints1"][:], g["certainty"][:]
+    return (k1, k0, c) if rev else (k0, k1, c)
 
 
 def write_mono_map(path, name, data: dict):

@@ -329,8 +329,8 @@ def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
     for conf, call, what in (
         ({"features": "superpoint"}, lambda ex: ex.extract_features(), "item 6"),
         ({"matcher": "lightglue"}, lambda ex: ex._get_matcher(), "item 6"),
-        ({"masks": "heuristic"}, lambda ex: ex.extract_masks(), "item 7"),
-        ({"matches_mode": "sparse+dense"}, lambda ex: ex.load_correspondence_inputs([]), "item 7"),
+        ({"dense_matcher": "roma"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
+        ({"dense_matcher": "mast3r"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
         ({"pairs_type": "retrieval", "retrieval": "netvlad"}, lambda ex: ex.extract_pairs(), "item 6"),
     ):
         with pytest.raises(NotImplementedError, match=what):

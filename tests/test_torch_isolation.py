@@ -1,9 +1,11 @@
 """The port stands alone, parallel/ included: it imports neither jax nor
-the JAX package nor, at import time, OpenCV, PyYAML or h5py (the image
-decoder, the artifact store and the intrinsics reader of the main path
-need none of them), its state-creating entry points refuse to fall back
-to the CPU, and
+the JAX package nor, at import time, OpenCV, onnxruntime, PyYAML or h5py
+(the image decoder, the artifact store and the intrinsics reader of the
+main path, the dense matcher and the sky masks need none of them), its
+state-creating entry points refuse to fall back to the CPU, and
 chip_smoke.py gives no result without a card or without the package.
+The card-only cases hold the dense NCC flow and the sky masks, card
+against CPU, at chip_smoke.py's shapes.
 
 The import check runs in a subprocess because tests/conftest.py imports
 jax and mpsfm_tpu into this one.
@@ -56,9 +58,10 @@ need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag"
         "mpsfm_tpu_torch.extraction.matchers.nn", "mpsfm_tpu_torch.extraction.priors",
         "mpsfm_tpu_torch.extraction.base", "mpsfm_tpu_torch.eval", "mpsfm_tpu_torch.pipeline", "mpsfm_tpu_torch.cli",
         "mpsfm_tpu_torch.parallel", "mpsfm_tpu_torch.parallel.dist_ba", "mpsfm_tpu_torch.parallel.multihost",
-        "mpsfm_tpu_torch.parallel.sharded_inference"}
-# the card's host has no OpenCV: no module of the port imports cv2 at import time
-bad += ["cv2"] if "cv2" in sys.modules else []
+        "mpsfm_tpu_torch.parallel.sharded_inference", "mpsfm_tpu_torch.extraction.matchers.dense_ncc",
+        "mpsfm_tpu_torch.extraction.guided_filter", "mpsfm_tpu_torch.extraction.masks"}
+# the card's host has no OpenCV and no onnxruntime: no module of the port imports them at import time
+bad += sorted(m for m in ("cv2", "onnxruntime") if m in sys.modules)
 print(len(names), bad)
 sys.exit(1 if bad or len(names) < 60 or not need <= set(names) else 0)
 """
@@ -141,3 +144,54 @@ def test_mapper_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
             call()
     mapper = MpsfmMapper({}, rec, corr, device="cpu")
     assert mapper.optimizer.device.type == mapper.registration.device.type == mapper.dc.device.type == "cpu"
+
+
+def test_dense_and_mask_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
+    """The dense matcher, its registry, the sky masks and the heuristic on a
+    host array run on the card unless the caller asks for the CPU; a tensor
+    keeps its own device."""
+    from mpsfm_tpu_torch.extraction.base import get_dense_matcher
+    from mpsfm_tpu_torch.extraction.masks import SkyMask, sky_mask_heuristic
+    from mpsfm_tpu_torch.extraction.matchers.dense_ncc import DenseNCCMatcher
+
+    img = np.zeros((16, 20, 3), np.float32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: DenseNCCMatcher(), lambda: get_dense_matcher("dense_ncc"), lambda: SkyMask(),
+                 lambda: sky_mask_heuristic(img)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert sky_mask_heuristic(img, device="cpu").device.type == "cpu"
+    assert sky_mask_heuristic(torch.as_tensor(img)).device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_dense_ncc_and_masks_card_vs_cpu():
+    """chip_smoke.dense_card_vs_cpu on the card: the NCC flow of a 640×480
+    pair, the sky heuristic at 640×480 and the onnx path at 701×800."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 1, (60, 80)).astype(np.float32)
+    A = np.kron(base, np.ones((8, 8), np.float32))
+    pair = [A, np.roll(A, (3, 6), axis=(0, 1))]
+    out = chip_smoke.dense_card_vs_cpu(torch.device("cuda"), chip_smoke.DENSE_SIZES["full"], pair)
+    assert out["ncc_share"] >= chip_smoke.NCC_FLOW_SHARE and out["sky_share"] >= chip_smoke.MASK_SHARE
+
+
+@pytest.mark.cuda
+def test_sky_heuristic_card_vs_cpu_on_seeded_bands():
+    """The heuristic mask on the card and on the CPU over seeded 480×640
+    images with a sky band, and the pyrDown ladder bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mpsfm_tpu_torch.extraction.masks import pyr_down_ladder, sky_mask_heuristic
+
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        img = chip_smoke.sky_image(rng, (480, 640))
+        g = sky_mask_heuristic(img, device="cuda").cpu()
+        c = sky_mask_heuristic(img, device="cpu")
+        assert (g == c).double().mean() >= chip_smoke.MASK_SHARE
+        u8 = chip_smoke.onnx_image(rng, (1400, 1500))
+        assert torch.equal(pyr_down_ladder(torch.as_tensor(u8, device="cuda")).cpu(),
+                           pyr_down_ladder(torch.as_tensor(u8)))

@@ -170,13 +170,16 @@ def test_chip_smoke_mapping_on_the_cpu():
         chip_smoke.mapping_summary(rec, ok, mapper, truth, 10 * rec.num_points3D())
 
 
-@pytest.mark.parametrize("fault", [None, "block", "noise"])
+@pytest.mark.parametrize("fault", [None, "reordered", "block", "noise"])
 def test_chip_smoke_k1_many_check_on_an_ill_conditioned_system(monkeypatch, fault):
     """chip_smoke.k1_many_check with the float64 reference, on a system
     scaled as the mapping phase's point covariances' (diagonal 1 .. 1e9),
-    with the plain solve in the kernel's place: it passes as it is, and
-    fails with one block of rows 5% off (a missed tile) or with a 1e-4
-    relative noise (a kernel less accurate than its plain version)."""
+    with the plain solve in the kernel's place: it passes as it is and as
+    another float32 order of the same solve (the plain solve on a copy of S
+    at float32's rounding, about 0.5 from the plain version at max |X| 2e6,
+    far past K1_TOL), and fails with one block of rows 5% off (a missed
+    tile) or with a 1e-4 relative noise (a kernel less accurate than its
+    plain version)."""
     from mpsfm_tpu_torch.ba import cholesky
 
     rng = np.random.default_rng(0)
@@ -188,6 +191,8 @@ def test_chip_smoke_k1_many_check_on_an_ill_conditioned_system(monkeypatch, faul
 
     def solve(S_, B_):
         monkeypatch.setattr(cholesky.KERNEL_MANY, "launches", cholesky.KERNEL_MANY.launches + 1)
+        if fault == "reordered":
+            S_ = chip_smoke.rounding_ensemble(S_, 2, seed=1)[1]
         X = cholesky.cholesky_solve_plain(S_, B_).clone()
         if fault == "block":
             X[40:72] *= 1.05
@@ -199,6 +204,9 @@ def test_chip_smoke_k1_many_check_on_an_ill_conditioned_system(monkeypatch, faul
     if fault is None:
         err, line = chip_smoke.k1_many_check(S, B, chip_smoke.K1_ILL_REL, "sound", f64=True)
         assert err == 0.0 and "against the float64 solve" in line
+    elif fault == "reordered":
+        err, line = chip_smoke.k1_many_check(S, B, chip_smoke.K1_ILL_REL, fault, f64=True)
+        assert err > 1e3 * chip_smoke.K1_TOL and "against the float64 solve" in line
     else:
         with pytest.raises(AssertionError, match="K1 many disagrees"):
             chip_smoke.k1_many_check(S, B, chip_smoke.K1_ILL_REL, fault, f64=True)
