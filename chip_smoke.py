@@ -219,6 +219,42 @@
    on both ranks, sharded BAs, and the same decisions as one process
    with dist_ba off. Printed: wall times, all-reduces and bytes per LM
    step. Neither group is a multi-card measurement.
+14. The flagship neural extraction (slice 11), run after 11 and before 12:
+   seeded checkpoints in the official layouts (superpoint_v1.pth,
+   superpoint_lightglue.pth, metric_depth_vit_small_800k.pth with
+   depth_model. prefixes, a NetVLAD torch export with its whitening)
+   written to a temporary directory and loaded through the port's loaders,
+   manifest-checked. (a) At full width on the card: SuperPoint (6000
+   keypoints, NMS radius 4, threshold 0.005) on the pipeline render cut to 5
+   images of 640×480, LightGlue (9 × 256 × 4 heads) on every pair of them in
+   bfloat16 and float32, timed per pair at the run's bucket and at 2048,
+   NetVLAD (K = 64, D = 512, resize_max 640), Metric3Dv2-small at its
+   616×1064 crop (44×76 patches + 5 tokens), and Metric3Dv2-giant2 once
+   (weights drawn on the card; finite, shaped; wall and peak memory
+   printed). (b) Card against CPU from the same seeded weights: SuperPoint's
+   keypoints as sets (>= 99% within 0.01 px) and descriptors (1e-4),
+   LightGlue's float32 scores (1e-4) and mutual-argmax matches (>= 99%) on
+   one pair cut to 1024 keypoints, the NetVLAD descriptor (1e-4 of its
+   largest entry), Metric3Dv2-small's depth and normals (1e-3 relative) at a
+   308×532 crop. (c) K4 (attention.cu) against attention_plain at the
+   shapes LightGlue ran (its first self- and cross-attention call at each
+   bucket, in each type) and at hd = 16: float32 within 2e-5, bfloat16
+   within one bfloat16 ulp of the plain float32 result; K4, the plain version
+   and scaled_dot_product_attention (timed only) timed, the bound (over the
+   real keys: a masked key's weight is 0) printed.
+   (d) The port's reconstruct under configs/sp-lg_m3dv2-small.yaml with
+   NetVLAD retrieval over the 5 images, the launch counts at 0 just before;
+   its SuperPoint is drawn He-normal with zero-mean filters (the seeded
+   one's descriptors agree to a cosine of 0.9999) and its LightGlue is the identity-block net of the
+   same layout (each block returns its input, final_proj 80·I), since the
+   seeded pair keeps no match: held that it reaches its end, every net's tensors
+   and every stage on the card, the pairs from NetVLAD, the feature, match
+   and depth stores written, the depth store equal to a direct infer_image,
+   K4 launched 36 times a LightGlue forward, matches kept, at least 2
+   images registered with points, K1 and K2 launched; printed: each pipe.*
+   wall, the matches a pair, registered images, points and the launches.
+   How many images register, the points' count and ATE are not held: the
+   weights are seeded.
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -230,8 +266,9 @@ checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
 own), the mapping phase's lines and launches, the pipeline phase's lines
 and launches, the dense modes phase's lines and launches, the sparse BA phase's lines and launches,
-the distributed BA's lines and launches, a `{"kernels": [...]}` line (K1 twice more, at the dense
-modes phase's last global BA and at the distributed BA's dense-T route), and last
+the distributed BA's lines and launches, the neural extraction's lines and launches, a `{"kernels":
+[...]}` line (K1 twice more, at the dense modes phase's last global BA and at the distributed BA's dense-T
+route; K4 in bfloat16 and in float32 at the neural phase's largest bucket), and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -3428,6 +3465,686 @@ def dense_modes_phase(dev, counted, size="full"):
     return out, launches, k1
 
 
+# ---- the flagship neural extraction (slice 11): SuperPoint, LightGlue on K4, NetVLAD, Metric3Dv2 ----
+
+# configs/sp-lg_m3dv2-small.yaml as the port's load_cfg gives it (tests/test_torch_pipeline_neural.py holds
+# it equal), with NetVLAD retrieval, the directory store and one card (dist_ba off); the phase adds the
+# weights paths of its seeded checkpoints
+NEURAL_CONF = {"matches_mode": "sparse",
+               "extractors": {"features": "superpoint", "matcher": "lightglue", "depth": "metric3dv2-small",
+                              "pairs_type": "retrieval", "n_retrieval": 20, "retrieval": "netvlad",
+                              "feature_conf": {"weights_path": None, "max_keypoints": 6000, "nms_radius": 4,
+                                               "resize_max": 1600},
+                              "matcher_conf": {"weights_path": None}},
+               "image_priors": {"depth": {"depth_uncertainty": 0.0433, "prior_std_multiplier": 2.045}},
+               "cache_format": "npy", "mapper": {"ba": {"dist_ba": "off"}}}
+# The nets at full width: SuperPoint (the config's 6000 keypoints, NMS radius 4, threshold 0.005), LightGlue
+# 9 × 256 × 4 heads, NetVLAD K = 64, D = 512 with its 4096-wide whitening at resize_max 640, Metric3Dv2-small
+# at its 616×1064 crop; giant2 once, weights drawn on the card. The pipeline render cut to 5 images of
+# 640×480. Card against CPU: SuperPoint on one image, NetVLAD on one image, LightGlue in float32 on one pair
+# with each image's first cpu_keypoints keypoints (bucket 1024, not the run's 8192) and Metric3Dv2-small at
+# the crop cpu_crop (308×532, a quarter of the pixels), cut so that the CPU's forwards stay a small share
+# of the phase. "small": a rehearsal on the CPU at narrow widths (no manifest check below
+# the official sizes, as in either package; the NetVLAD whitening a zero-stride tensor, so its file stays
+# small).
+NEURAL_SIZES = {
+    "full": dict(render=dict(PIPELINE, n_images=5), sp={}, lg={},
+                 netvlad=dict(K=64, resize_max=640, whiten_random=True),
+                 m3d=dict(encoder="vit_small_reg"), m3d_tiny={}, giant2=True, cpu_keypoints=1024,
+                 cpu_crop=(308, 532), k4_small_bucket=2048),
+    "small": dict(render=dict(PIPELINE_SMALL, n_images=3), sp=dict(max_keypoints=512),
+                  lg=dict(dim=64, num_heads=4, n_layers=2, input_dim=256),
+                  netvlad=dict(K=64, resize_max=160, whiten_random=False),
+                  m3d=dict(encoder="vit_small_reg"),
+                  m3d_tiny=dict(dim=32, depth=4, heads=2, hooks=(0, 1, 2, 3), feature_channels=(8, 12, 16, 16),
+                                decoder_channels=(8, 8, 12, 16, 16), hidden=8, iters=2, crop_size=(112, 112),
+                                pos_grid=8),
+                  giant2=False, cpu_keypoints=256, cpu_crop=(112, 112), k4_small_bucket=512),
+}
+# card against CPU: keypoints as sets (KP_MATCH_PX, KP_COMMON), descriptors within DESC_TOL (the CPU tests'
+# bounds against the JAX package), LightGlue's mutual-argmax matches equal at KP_COMMON or more, the NetVLAD
+# descriptor within NETVLAD_TOL of its largest entry, Metric3Dv2's depth and normals within M3D_REL of their
+# largest magnitude. LightGlue's float32 scores within DESC_TOL times their largest magnitude: the official
+# 9 layers on seeded weights carry float32's summation order from layer to layer, and the card running the
+# plain attention lies as far from the CPU as with K4 (2.59e-4 and 2.61e-4 at scores up to 17.5, H100); K4's
+# run is held within DESC_TOL of that plain-attention run's distance.
+NETVLAD_TOL, M3D_REL = 1e-4, 1e-3
+# K4 against attention_plain: float32 within K4_TOL (the JAX package's own bound between its attention paths,
+# tests/test_extraction.py); bfloat16 within one bfloat16 ulp of the plain version's float32 result on the
+# same rounded inputs, plus K4_TOL where that result is near zero (float32's summation order alone moves an
+# output of the weighted mean by ~1e-6 absolute, more than one ulp of a value near zero)
+K4_TOL = 2e-5
+# (d) on the card: the mapping pair's matches take the mapper to at least its initial pair
+NEURAL_MIN_REG = 2
+PEAK_BF16 = 989e12  # the H100 SXM's dense bfloat16 tensor-core rate: K4's bound for bfloat16 inputs
+
+
+def neural_checkpoints(d, size, seed=SEED + 13):
+    """Seeded checkpoints in the official layouts, on the host: superpoint_v1.pth,
+    superpoint_lightglue.pth, metric_depth_vit_small_800k.pth (depth_model.
+    prefixes) and a NetVLAD torch export (backbone.N, netvlad.*, whiten.*,
+    preproc_mean). And (d)'s pair, in the same layouts, so that matches
+    reach the mapper: a superpoint_v1.pth drawn He-normal (std
+    sqrt(2 / fan_in)) with zero biases and every filter but the detector's
+    (convPb) zero-mean, so that no response follows its input's mean (the
+    seeded net's uniform ±1/sqrt(fan_in) draws lose the image over its eight
+    convolutions: its descriptors agree to a cosine of 0.9999, so no matcher
+    tells them apart; these agree to 0.11 on average, and about half of the
+    matches below lie within 3 px of the truth); and the identity-block LightGlue of
+    tests/test_torch_pipeline_neural.py: each block's last FFN layer zeroed
+    (a block returns its input), input_proj the identity, final_proj 80·I,
+    matchability 1, so the descriptors reach the dual softmax unchanged (the
+    seeded net's scores sit near 1/N² and keep no match). Returns {role:
+    path} and the seconds it took."""
+    import torch
+
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.extraction.features.superpoint import CONVS, SuperPoint
+    from mpsfm_tpu_torch.extraction.matchers.lightglue import LightGlue
+    from mpsfm_tpu_torch.extraction.nets.metric3d import Metric3Dv2
+    from mpsfm_tpu_torch.extraction.retrieval import _CONV_IDX, NetVLAD
+
+    t = time.perf_counter()
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "mapping").mkdir(exist_ok=True)
+    paths = {"features": d / "superpoint_v1.pth", "matcher": d / "superpoint_lightglue.pth",
+             "features_mapping": d / "mapping" / "superpoint_v1.pth",
+             "matcher_mapping": d / "mapping" / "superpoint_lightglue.pth",
+             "depth": d / "metric_depth_vit_small_800k.pth", "retrieval": d / "netvlad_pitts30k.pth"}
+    sp = SuperPoint(device="cpu")
+    sp.init_random(seed)
+    torch.save(sp.net.state_dict(), paths["features"])
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+    for name in CONVS:
+        w = sp.net.state_dict()[f"{name}.weight"]
+        w = torch.randn(w.shape, generator=g) * (2 / w[0].numel()) ** 0.5
+        sd[f"{name}.weight"] = w if name == "convPb" else w - w.mean((1, 2, 3), keepdim=True)
+        sd[f"{name}.bias"] = torch.zeros(w.shape[0])
+    torch.save(sd, paths["features_mapping"])
+    lg = LightGlue(size["lg"], device="cpu")
+    lg.init_random(seed)
+    L, p = lg.conf["n_layers"], lg.params
+    torch.save(convert.lightglue_state_dict(p, L), paths["matcher"])
+    for blk in [f"{kind}_{l}" for l in range(L) for kind in ("self", "cross")]:
+        p[blk]["ffn1"]["w"].zero_()
+        p[blk]["ffn1"]["b"].zero_()
+    p["input_proj"]["w"] = torch.eye(*p["input_proj"]["w"].shape)
+    p["final_proj"]["w"] = 80 * torch.eye(*p["final_proj"]["w"].shape)
+    p["matchability"]["w"].zero_()
+    p["matchability"]["b"].fill_(10)
+    torch.save(convert.lightglue_state_dict(p, L), paths["matcher_mapping"])
+    m3d = Metric3Dv2({**size["m3d"], **size["m3d_tiny"]}, device="cpu")
+    torch.save({"depth_model." + k: v for k, v in m3d.init_random(seed).items()}, paths["depth"])
+    nv = NetVLAD(device="cpu")
+    K = size["netvlad"]["K"]
+    nv.init_random(seed, K=K, D=512)
+    p = nv.params
+    sd = {f"backbone.{ti}.{s}": p[f"conv{i}"][n] for i, ti in enumerate(_CONV_IDX) for s, n in (("weight", "w"),
+                                                                                                 ("bias", "b"))}
+    sd["netvlad.score_proj.weight"] = p["assign_w"][:, :, None]
+    sd["netvlad.centers"] = p["centers"].T.contiguous()
+    g = torch.Generator().manual_seed(seed)
+    sd["whiten.weight"] = (torch.randn(4096, K * 512, generator=g) * (K * 512) ** -0.5
+                           if size["netvlad"]["whiten_random"] else torch.zeros(1).expand(4096, K * 512))
+    sd["whiten.bias"] = torch.zeros(4096)
+    sd["preproc_mean"] = torch.tensor([123.68, 116.779, 103.939])
+    torch.save(sd, paths["retrieval"])
+    return paths, time.perf_counter() - t
+
+
+def neural_conf(paths, size, mapping=False):
+    """NEURAL_CONF with the checkpoints' paths (SuperPoint's and LightGlue's
+    the mapping pair with `mapping`) and the size's widths."""
+    conf = json.loads(json.dumps(NEURAL_CONF))
+    ex = conf["extractors"]
+    tag = "_mapping" if mapping else ""
+    ex["feature_conf"].update(weights_path=str(paths["features" + tag]), **size["sp"])
+    ex["matcher_conf"].update(weights_path=str(paths["matcher" + tag]), **size["lg"])
+    ex["depth_conf"] = {"weights_path": str(paths["depth"]), **size["m3d_tiny"]}
+    ex["retrieval_conf"] = {"weights_path": str(paths["retrieval"]), "resize_max": size["netvlad"]["resize_max"]}
+    return conf
+
+
+def neural_images(data_dir):
+    """The render's images as the extraction reads them: gray in [0, 1], RGB uint8."""
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.utils.io import read_image
+
+    paths = sorted((Path(data_dir) / "images").iterdir())
+    return ([read_image(p, True).astype(np.float32) / 255 for p in paths], [read_image(p) for p in paths])
+
+
+def attention_spy():
+    """Context manager keeping the arguments of LightGlue's first self- and
+    first cross-attention call of each (bucket, dtype) (calls 0 and 2 of a
+    forward) and counting forwards. Yields (kept, forwards)."""
+    from mpsfm_tpu_torch.extraction.matchers import lightglue
+
+    kept, calls, forwards = {}, [0], [0]
+    orig_att, orig_fwd = lightglue.attention, lightglue.LightGlue.forward
+
+    def att(q, k, v, mask, scale):
+        i = calls[0]
+        calls[0] += 1
+        if i in (0, 2):
+            kept.setdefault((("self", "cross")[i // 2], q.shape[1], q.dtype), (q, k, v, mask, scale))
+        return orig_att(q, k, v, mask, scale)
+
+    def fwd(self, *a):
+        forwards[0] += 1
+        calls[0] = 0
+        return orig_fwd(self, *a)
+
+    @contextlib.contextmanager
+    def ctx():
+        lightglue.attention, lightglue.LightGlue.forward = att, fwd
+        try:
+            yield kept, forwards
+        finally:
+            lightglue.attention, lightglue.LightGlue.forward = orig_att, orig_fwd
+
+    return ctx()
+
+
+def neural_full_width(dev, paths, size, images, rgbs, intr):
+    """(a) the nets at full width on `dev`, loaded through the port's
+    loaders from the checkpoints (manifest-checked at the official sizes):
+    SuperPoint on every image, LightGlue on every pair of them in bfloat16
+    and float32 (timed per pair, at the run's bucket and at a smaller one),
+    NetVLAD on every image, Metric3Dv2-small on every image, giant2 once.
+    Returns the features, LightGlue's kept attention arguments and the
+    times."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.features.superpoint import SuperPoint
+    from mpsfm_tpu_torch.extraction.matchers.lightglue import LightGlue
+    from mpsfm_tpu_torch.extraction.nets.metric3d import Metric3Dv2
+    from mpsfm_tpu_torch.extraction.retrieval import NetVLAD
+
+    out = {}
+    conf = neural_conf(paths, size)["extractors"]
+    sp = SuperPoint(conf["feature_conf"], device=dev)
+    sp.batch(images[:1])  # warm-up
+    sync(dev)
+    t = time.perf_counter()
+    feats = sp.batch(images)
+    sync(dev)
+    out["superpoint_s"] = (time.perf_counter() - t) / len(images)
+    out["keypoints"] = [len(f["keypoints"]) for f in feats]
+    table = [(f["keypoints"], f["descriptors"]) for f in feats]
+    whs = [im.shape[::-1] for im in images]
+    pairs = [(a, b) for a in range(len(images)) for b in range(a + 1, len(images))]
+    cut = size["k4_small_bucket"]
+    small = [(f["keypoints"][:cut], f["descriptors"][:cut]) for f in feats[:2]]
+    kept_all, lg_times = {}, {}
+    for dt in ("bfloat16", "float32"):
+        lg = LightGlue({**conf["matcher_conf"], "dtype": dt}, device=dev)
+        lg.match_pairs_from_table(table[:2], whs[:2], [(0, 1)])  # warm-up
+        with attention_spy() as (kept, forwards):
+            sync(dev)
+            t = time.perf_counter()
+            res = lg.match_pairs_from_table(table, whs, pairs)
+            sync(dev)
+            wall = time.perf_counter() - t
+            t = time.perf_counter()
+            lg.match_pairs_from_table(small, whs[:2], [(0, 1)])
+            sync(dev)
+            wall_small = time.perf_counter() - t
+        kept_all.update(kept)
+        lg_times[dt] = {LightGlue._bucket(max(out["keypoints"])): wall / len(pairs),
+                        LightGlue._bucket(max(len(k) for k, _ in small)): wall_small}
+        out[f"matches_{dt}"] = [int((r["matches0"] >= 0).sum()) for r in res]
+        out[f"forwards_{dt}"] = forwards[0]
+    out["lightglue_s_per_pair"] = lg_times
+    nv = NetVLAD(conf["retrieval_conf"], device=dev)
+    nv(rgbs[0])
+    sync(dev)
+    t = time.perf_counter()
+    descs = [nv(im) for im in rgbs]
+    sync(dev)
+    out["netvlad_s"] = (time.perf_counter() - t) / len(rgbs)
+    out["netvlad_finite"] = bool(np.isfinite(np.stack(descs)).all())
+    m3d = Metric3Dv2({**size["m3d"], **size["m3d_tiny"], "weights_path": conf["depth_conf"]["weights_path"]},
+                     device=dev)
+    m3d.infer_image(rgbs[0], intr)
+    sync(dev)
+    t = time.perf_counter()
+    maps = [m3d.infer_image(im, intr) for im in rgbs]
+    sync(dev)
+    out["metric3d_s"] = (time.perf_counter() - t) / len(rgbs)
+    out["metric3d_ok"] = all(m["depth"].shape == rgbs[0].shape[:2] and np.isfinite(m["depth"]).all()
+                             and m["normals"].shape == (*rgbs[0].shape[:2], 3) for m in maps)
+    out["metric3d_patches"] = tuple(c // m3d.conf["patch"] for c in m3d.conf["crop_size"])
+    del m3d
+    if size["giant2"]:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        g2 = Metric3Dv2({"encoder": "vit_giant2_reg"}, device=dev)
+        params = g2.init_random(SEED + 14, on_device=True)
+        sync(dev)
+        out["giant2_init_s"] = time.perf_counter() - t
+        out["giant2_params"] = sum(v.numel() for v in params.values())
+        t = time.perf_counter()
+        m = g2.infer_image(rgbs[0], intr)
+        sync(dev)
+        out["giant2_s"] = time.perf_counter() - t
+        out["giant2_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["giant2_ok"] = bool(m["depth"].shape == rgbs[0].shape[:2] and np.isfinite(m["depth"]).all()
+                                and np.isfinite(m["normals"]).all())
+        del g2, params
+        torch.cuda.empty_cache()
+    out["ok"] = out["netvlad_finite"] and out["metric3d_ok"] and out.get("giant2_ok", True)
+    return feats, kept_all, out
+
+
+def neural_card_vs_cpu(dev, size, images=None, rgbs=None, intr=None):
+    """(b) each net on `dev` and on the CPU from the same seeded weights, on
+    one image or pair: SuperPoint (keypoints as sets within KP_MATCH_PX, at
+    least KP_COMMON common, descriptors within DESC_TOL), LightGlue in
+    float32 on the first cpu_keypoints keypoints of two images (scores
+    within DESC_TOL, mutual-argmax matches equal at KP_COMMON or more),
+    NetVLAD (within NETVLAD_TOL), Metric3Dv2-small at the crop cpu_crop
+    (depth and normals within M3D_REL). Renders its own images when none
+    are given. Returns the gaps and "ok"."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from mpsfm_tpu_torch.extraction.features.superpoint import SuperPoint
+    from mpsfm_tpu_torch.extraction.matchers.lightglue import LightGlue, normalize_keypoints
+    from mpsfm_tpu_torch.extraction.nets.metric3d import Metric3Dv2
+    from mpsfm_tpu_torch.extraction.retrieval import NetVLAD
+
+    dev = torch.device(dev)
+    if images is None:
+        with tempfile.TemporaryDirectory() as tmp:
+            render_rgbd_dir(Path(tmp) / "scene", **size["render"])
+            images, rgbs = neural_images(Path(tmp) / "scene")
+        cfg = size["render"]
+        intr = (cfg["focal"], cfg["focal"], cfg["img_wh"][0] / 2, cfg["img_wh"][1] / 2)
+    out = {}
+    sp = SuperPoint(size["sp"], device=dev)
+    sp.init_random(SEED + 15)
+    g, f1 = sp.batch(images[:2])
+    sp = SuperPoint(size["sp"], device="cpu")
+    sp.init_random(SEED + 15)
+    c = sp(images[0])
+    share, off, common, arg = nearest_share(g["keypoints"], c["keypoints"], KP_MATCH_PX)
+    out["sp_share"], out["sp_offset"] = share, off
+    out["sp_desc_gap"] = float(np.abs(g["descriptors"][common] - c["descriptors"][arg[common]]).max())
+    # LightGlue in float32 on the card's features, cut, through the same padded batch on both devices
+    f0 = g
+    n = size["cpu_keypoints"]
+    wh = images[0].shape[::-1]
+    b = LightGlue._bucket(n)
+    arrs = []
+    for f in (f0, f1):
+        k = np.zeros((1, b, 2), np.float32)
+        dsc = np.zeros((1, b, f["descriptors"].shape[1]), np.float32)
+        m = np.zeros((1, b), bool)
+        kk = f["keypoints"][:n]
+        k[0, :len(kk)] = normalize_keypoints(kk, wh)
+        dsc[0, :len(kk)] = f["descriptors"][:n]
+        m[0, :len(kk)] = True
+        arrs.append((k, dsc, m))
+    (k0, d0, m0), (k1, d1, m1) = arrs
+    from mpsfm_tpu_torch.extraction.matchers import attention as att
+    from mpsfm_tpu_torch.extraction.matchers import lightglue
+
+    lg_out = {}
+    for d, name in ((dev, dev.type), (torch.device("cpu"), "cpu"), (dev, "plain")):
+        lg = LightGlue({**size["lg"], "dtype": "float32", "filter_threshold": 0.0}, device=d)
+        lg.init_random(SEED + 16)
+        args = [torch.as_tensor(a, device=d) for a in (k0, k1, d0, d1, m0, m1)]
+        if name == "plain":  # the card with the plain attention: K4's share of the gap
+            lightglue.attention = att.attention_plain
+        try:
+            scores = lg.forward(*args)
+            mm, _ = lg.forward_extract(*args)
+        finally:
+            lightglue.attention = att.attention
+        lg_out[name] = (scores[0, :int(m0.sum()), :int(m1.sum())].cpu(), mm[0, :int(m0.sum())].cpu())
+    (sg, mg), (sc, mc) = lg_out[dev.type], lg_out["cpu"]
+    out["lg_score_gap"] = float((sg - sc).abs().max())
+    out["lg_score_max"] = float(sc.abs().max())
+    out["lg_plain_gap"] = float((lg_out["plain"][0] - sc).abs().max())
+    out["lg_match_share"] = float((mg == mc).double().mean())
+    out["lg_matches"] = int((mc >= 0).sum())
+    descs = {}
+    for d in (dev, torch.device("cpu")):
+        nv = NetVLAD({"resize_max": size["netvlad"]["resize_max"]}, device=d)
+        nv.init_random(SEED + 17, K=size["netvlad"]["K"])
+        descs[d.type] = nv(rgbs[0])
+    out["netvlad_gap"] = float(np.abs(descs[dev.type] - descs["cpu"]).max() / np.abs(descs["cpu"]).max())
+    maps = {}
+    for d in (dev, torch.device("cpu")):
+        m3d = Metric3Dv2({**size["m3d"], **size["m3d_tiny"], "crop_size": size["cpu_crop"]}, device=d)
+        m3d.init_random(SEED + 18)
+        maps[d.type] = m3d.infer_image(rgbs[0], intr)
+    gm, cm = maps[dev.type], maps["cpu"]
+    out["m3d_depth_rel"] = float(np.abs(gm["depth"] - cm["depth"]).max() / np.abs(cm["depth"]).max())
+    out["m3d_normals_rel"] = float(np.abs(gm["normals"] - cm["normals"]).max() / np.abs(cm["normals"]).max())
+    out["ok"] = bool(out["sp_share"] >= KP_COMMON and out["sp_desc_gap"] <= DESC_TOL
+                     and out["lg_score_gap"] <= DESC_TOL * max(1.0, out["lg_score_max"])
+                     and out["lg_score_gap"] <= out["lg_plain_gap"] + DESC_TOL and out["lg_match_share"] >= KP_COMMON
+                     and out["netvlad_gap"] <= NETVLAD_TOL and out["m3d_depth_rel"] <= M3D_REL
+                     and out["m3d_normals_rel"] <= M3D_REL)
+    return out
+
+
+def bf16_ulp(x):
+    """One bfloat16 ulp at |x| (8 significand bits)."""
+    import torch
+
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def k4_check(what, args, reps=10):
+    """K4 against attention_plain on `args` (q, k, v, mask, scale): float32
+    within K4_TOL, bfloat16 within one bfloat16 ulp of the plain version's
+    float32 result on the same rounded inputs; K4, the plain version and the
+    library call (scaled_dot_product_attention with the key mask, timed only)
+    timed on the card; the bound from the FLOP over the real keys (at the
+    float32 or the bfloat16 tensor-core peak) and the bytes. Returns a row
+    dict."""
+    import torch
+    import torch.nn.functional as F
+
+    from mpsfm_tpu_torch.extraction.matchers import attention as att
+
+    q, k, v, mask, scale = args
+    n = att.KERNEL.launches
+    got = att.attention(q, k, v, mask, scale)
+    torch.cuda.synchronize()
+    if att.KERNEL.launches != n + 1:
+        raise AssertionError(f"{what}: K4 was not launched")
+    ref = att.attention_plain(q.float(), k.float(), v.float(), mask, scale)
+    err = float((got.float() - ref).abs().max())
+    if q.dtype == torch.float32:
+        ok, bound_txt = err <= K4_TOL, f"max |d| <= {K4_TOL}"
+    else:
+        ok = bool((got.float() - ref).abs().le(bf16_ulp(ref) + K4_TOL).all())
+        bound_txt = f"within one bf16 ulp + {K4_TOL}"
+    if not ok or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{what}: K4 vs plain max |d| {err:.3e} ({bound_txt})")
+    ms = cuda_ms(lambda: att.attention(q, k, v, mask, scale), reps)
+    att.KERNEL.launches = n  # launches made to compare and time K4 are not the path's
+    plain_ms = cuda_ms(lambda: att.attention_plain(q, k, v, mask, scale), 2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    am = mask[:, None, None, :]
+    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am, scale=scale), reps)
+    B, N, H, hd = q.shape
+    flops = att.attention_flops(N, H, hd, mask)  # the real keys only: a masked key's weight is 0
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + mask.numel()
+    peak = PEAK_F32 if q.dtype == torch.float32 else PEAK_BF16
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    line = (f"{what}: K4 {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} "
+            f"ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}, {flops / 1e9:.2f} GFLOP at "
+            f"{peak / 1e12:.0f} TFLOP/s), {flops / ms / 1e9:.2f} TFLOP/s achieved; max |d| {err:.3e} ({bound_txt})")
+    print(line)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, line=line)
+
+
+def k4_phase(dev, kept, size):
+    """(c) K4 against attention_plain at the shapes the phase's LightGlue
+    ran: its first self- and cross-attention call of each bucket and type
+    (kept by attention_spy), and at hd = 16 (the tests' LightGlue) on seeded
+    inputs at the smaller bucket. Returns {(kind, bucket, dtype): row}."""
+    import torch
+
+    rows = {}
+    for (kind, bucket, dt), args in sorted(kept.items(), key=lambda x: (-x[0][1], x[0][0], str(x[0][2]))):
+        B, N, H, hd = args[0].shape
+        rows[(kind, bucket, str(dt).split(".")[-1])] = k4_check(
+            f"K4 {kind}-attention at bucket {bucket} ({B}x{N}x{H}x{hd} against {args[1].shape[1]} keys, "
+            f"{int(args[3][0].sum())} real), {str(dt).split('.')[-1]}", args)
+    rng = np.random.default_rng(SEED + 19)
+    b = size["k4_small_bucket"]
+    mask = torch.as_tensor(np.arange(b)[None] < b - 37, device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.as_tensor(rng.normal(size=(1, b, 4, 16)), dtype=torch.float32, device=dev).to(dt)
+                   for _ in range(3))
+        rows[("hd16", b, str(dt).split(".")[-1])] = k4_check(
+            f"K4 at hd = 16 (1x{b}x4x16, {b - 37} real keys), {str(dt).split('.')[-1]}", (q, k, v, mask, 0.25))
+    return rows
+
+
+@contextlib.contextmanager
+def neural_seen():
+    """Record the pipeline's neural models as it builds them and the device
+    of each stage's work: the detector's images, the matcher's operands,
+    NetVLAD's images, Metric3Dv2's crops, verification and the mapper.
+    Yields (seen: stage -> set of device types, models: role -> list)."""
+    import torch
+
+    from mpsfm_tpu_torch import pipeline
+    from mpsfm_tpu_torch.extraction import base, priors
+    from mpsfm_tpu_torch.extraction.features.superpoint import SuperPoint
+    from mpsfm_tpu_torch.extraction.matchers.lightglue import LightGlue
+    from mpsfm_tpu_torch.extraction.nets.metric3d import Metric3Dv2
+    from mpsfm_tpu_torch.extraction.retrieval import NetVLAD
+    from mpsfm_tpu_torch.scene import correspondences
+
+    seen = {k: set() for k in ("features", "matches", "retrieval", "depth", "populate", "mapper")}
+    models = {"features": [], "matcher": [], "retrieval": [], "depth": []}
+    orig = dict(batch_fn=SuperPoint.batch_fn, fwd=LightGlue.forward, nv=NetVLAD.forward, m3d=Metric3Dv2.forward,
+                be=priors._Metric3DBackend, verify=correspondences.estimate_two_view_geometry_batch,
+                mapper=pipeline.MpsfmMapper, fm=dict(base.FEATURE_MODELS), mm=dict(base.MATCHER_MODELS),
+                nvc=base.NetVLAD)
+
+    def batch_fn(self):
+        fn = orig["batch_fn"](self)
+
+        def run(x):
+            seen["features"].add(x.device.type)
+            return fn(x)
+
+        return run
+
+    def fwd(self, k0, *a):
+        seen["matches"].add(k0.device.type)
+        return orig["fwd"](self, k0, *a)
+
+    def nv_fwd(self, img):
+        seen["retrieval"].add(img.device.type)
+        return orig["nv"](self, img)
+
+    def m3d_fwd(self, p, x, hw):
+        seen["depth"].add(x.device.type)
+        return orig["m3d"](self, p, x, hw)
+
+    def recorder(cls, role):
+        def make(*a, **k):
+            m = cls(*a, **k)
+            models[role].append(m)
+            return m
+
+        return make
+
+    def verify(pairs, *a, device, **k):
+        seen["populate"].add(torch.device(device).type)
+        return orig["verify"](pairs, *a, device=device, **k)
+
+    def mapper(*a, **k):
+        m = orig["mapper"](*a, **k)
+        seen["mapper"] |= {m.optimizer.device.type, m.registration.device.type, m.dc.device.type}
+        return m
+
+    SuperPoint.batch_fn, LightGlue.forward, NetVLAD.forward, Metric3Dv2.forward = batch_fn, fwd, nv_fwd, m3d_fwd
+    base.FEATURE_MODELS["superpoint"] = recorder(SuperPoint, "features")
+    base.MATCHER_MODELS["lightglue"] = recorder(LightGlue, "matcher")
+    base.NetVLAD = recorder(NetVLAD, "retrieval")
+    priors._Metric3DBackend = recorder(orig["be"], "depth")
+    correspondences.estimate_two_view_geometry_batch, pipeline.MpsfmMapper = verify, mapper
+    try:
+        yield seen, models
+    finally:
+        SuperPoint.batch_fn, LightGlue.forward, NetVLAD.forward, Metric3Dv2.forward = (
+            orig["batch_fn"], orig["fwd"], orig["nv"], orig["m3d"])
+        base.FEATURE_MODELS.update(orig["fm"])
+        base.MATCHER_MODELS.update(orig["mm"])
+        base.NetVLAD, priors._Metric3DBackend = orig["nvc"], orig["be"]
+        correspondences.estimate_two_view_geometry_batch, pipeline.MpsfmMapper = orig["verify"], orig["mapper"]
+
+
+def tensors_of(model):
+    """Every tensor a neural model holds (its net's parameters or its param dict)."""
+    import torch
+
+    found = []
+
+    def walk(x):
+        if torch.is_tensor(x):
+            found.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+
+    net = getattr(model, "net", None)
+    if isinstance(net, torch.nn.Module):
+        found += list(net.parameters())
+    elif net is not None:  # the Metric3Dv2 backend: its net's param dict
+        walk(net.params)
+    walk(getattr(model, "params", None))
+    return found
+
+
+def neural_pipeline(dev, counted, size, paths, data_dir):
+    """(d) the port's reconstruct under NEURAL_CONF with the checkpoints over
+    the render (the mapping pair of checkpoints: a He-normal SuperPoint and
+    the identity-block LightGlue, so matches reach the mapper), the launch
+    counts at 0 just before. Held: the run reaches its
+    end; every net's tensors and every stage's work on `dev`; the pairs from
+    NetVLAD's descriptors; the feature, match and depth stores written; the
+    depth store equal to a direct infer_image; K4 launched 36 times a LightGlue
+    forward; on the card, matches kept, at least NEURAL_MIN_REG images
+    registered with points, K1 and K2 launched. Not held (seeded weights):
+    how many images register, the points' count, ATE. Prints each pipe.*
+    phase's wall, the matches a pair and the launches."""
+    from pathlib import Path
+
+    import torch
+
+    from mpsfm_tpu_torch.extraction.pairs import pairs_from_retrieval
+    from mpsfm_tpu_torch.utils import io
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    conf = neural_conf(paths, size, mapping=True)
+    TIMERS.reset()
+    for k in counted.values():
+        k.launches = 0
+    with neural_seen() as (seen, models), attention_spy() as (_, forwards):
+        rec, ok, wall = run_pipeline(data_dir, conf, dev)
+    launches = {name: k.launches for name, k in counted.items()}
+    pipe = {k: round(v, 4) for k, v in TIMERS.totals.items() if k.startswith("pipe.")}
+    cache = Path(data_dir) / "cache"
+    names = sorted(p.name for p in (Path(data_dir) / "images").iterdir())
+    stores = {"features": cache / "feats-superpoint.npyd", "matches": cache / "matches-lightglue.npyd",
+              "depth": cache / "depth-metric3dv2-small.npyd", "pairs": cache / "pairs.txt"}
+    written = {k for k, p in stores.items() if p.exists()}
+    pairs = io.read_pairs(stores["pairs"])
+    nv = models["retrieval"][0]
+    descs = np.stack([nv(io.read_image(Path(data_dir) / "images" / n)) for n in names])
+    pairs_from = "netvlad" if pairs == pairs_from_retrieval(names, descs, conf["extractors"]["n_retrieval"],
+                                                             device=dev) else "other"
+    be = models["depth"][0]
+    intr = json.loads((Path(data_dir) / "intrinsics.yaml").read_text())["1"]["params"]
+    direct = be.net.infer_image(io.read_image(Path(data_dir) / "images" / names[0]), intr)
+    stored = io.get_mono_map(stores["depth"], names[0])
+    depth_gap = float(np.abs(stored["depth"] - direct["depth"]).max() / np.abs(direct["depth"]).max())
+    per_pair = [int((io.get_matches(stores["matches"], a, b)[0]).shape[0]) for a, b in pairs]
+    on_dev = {role: sorted({t.device.type for m in ms for t in tensors_of(m)}) for role, ms in models.items()}
+    out = dict(reached_end=True, ok=bool(ok), registered=rec.num_reg_images(), images=rec.num_images(),
+               points=rec.num_points3D(), wall=wall, pipe=pipe, stores=written, pairs_from=pairs_from,
+               depth_gap=depth_gap, depth_equal=depth_gap <= 1e-5, matches_per_pair=per_pair,
+               forwards=forwards[0], tensors=on_dev, seen={k: sorted(v) for k, v in seen.items()})
+    print(f"neural pipeline (sp-lg_m3dv2-small + NetVLAD, the mapping SuperPoint and LightGlue, {len(names)} "
+          f"images {size['render']['img_wh'][0]}x{size['render']['img_wh'][1]}): {wall:.3f} s wall, reached its end; "
+          f"registered {out['registered']}/{out['images']} (held >= {NEURAL_MIN_REG} on the card), {out['points']} "
+          f"points (count not held: seeded weights); {len(pairs)} pairs from "
+          f"{pairs_from}; matches a pair {per_pair}; stores {sorted(written)}; depth store vs a direct infer_image "
+          f"{depth_gap:.2e}; LightGlue forwards {forwards[0]}; tensors on {json.dumps(on_dev)}; stages on "
+          f"{json.dumps(out['seen'])}; launches {json.dumps(launches)}")
+    print(f"neural pipeline pipe.* phases (s wall): {json.dumps(pipe)}")
+    want = torch.device(dev).type
+    problems = []
+    if written != set(stores) or pairs_from != "netvlad" or not out["depth_equal"]:
+        problems.append("stores / pairs / depth")
+    # every net's tensors and every stage that ran on the device; the nets and the mapper ran
+    ran = {"features", "matches", "retrieval", "depth", "mapper"}
+    if (any(v != [want] for v in on_dev.values()) or any(v and v != [want] for v in out["seen"].values())
+            or not all(out["seen"][k] for k in ran)):
+        problems.append(f"off {want}")
+    if want == "cuda" and (forwards[0] == 0 or launches.get("attention") != 36 * forwards[0]):
+        problems.append(f"K4 launches {launches.get('attention')} for {forwards[0]} forwards")
+    if want == "cuda" and (not any(per_pair) or out["registered"] < NEURAL_MIN_REG or out["points"] == 0
+                           or not launches.get("cholesky") or not launches.get("bini")):
+        problems.append(f"the mapper on the neural matches: registered {out['registered']}, {out['points']} "
+                        f"points, launches {launches}")
+    if problems:
+        raise AssertionError(f"neural pipeline: {problems}: {out}")
+    return out, launches
+
+
+def neural_phase(dev, counted, size="full"):
+    """Slice 11, the flagship neural extraction: seeded checkpoints in the
+    official layouts written and loaded through the port's loaders; (a) the
+    nets at full width on the card (neural_full_width), (b) each net card
+    against CPU (neural_card_vs_cpu), (c) K4 against attention_plain at
+    the shapes LightGlue ran (k4_phase), (d) the port's reconstruct under
+    configs/sp-lg_m3dv2-small.yaml with NetVLAD retrieval
+    (neural_pipeline). size: "full", or "small" for a rehearsal on the CPU
+    (counted {}; no K4 check). Returns (summary, launches, K4 rows)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    dev = torch.device(dev)
+    size_name, size = size, NEURAL_SIZES[size]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, ckpt_s = neural_checkpoints(Path(tmp) / "weights", size)
+        data = Path(tmp) / "scene"
+        render_rgbd_dir(data, **size["render"])
+        cfg = size["render"]
+        intr = (cfg["focal"], cfg["focal"], cfg["img_wh"][0] / 2, cfg["img_wh"][1] / 2)
+        images, rgbs = neural_images(data)
+        feats, kept, full = neural_full_width(dev, paths, size, images, rgbs, intr)
+        lgt = full["lightglue_s_per_pair"]
+        print(f"neural extraction ({size_name}): checkpoints written in {ckpt_s:.2f} s; SuperPoint "
+              f"{full['superpoint_s'] * 1e3:.2f} ms an image ({full['keypoints']} keypoints); LightGlue s a pair "
+              + ", ".join(f"{dt} " + " / ".join(f"bucket {b}: {s * 1e3:.2f} ms" for b, s in v.items())
+                          for dt, v in lgt.items())
+              + f" (matches bf16 {full['matches_bfloat16']}, f32 {full['matches_float32']}); NetVLAD "
+              f"{full['netvlad_s'] * 1e3:.2f} ms an image; Metric3Dv2-small {full['metric3d_s'] * 1e3:.2f} ms an "
+              f"image ({full['metric3d_patches'][0]}x{full['metric3d_patches'][1]} patches)"
+              + (f"; giant2 ({full['giant2_params'] / 1e9:.3f} B params, drawn on the card in "
+                 f"{full['giant2_init_s']:.2f} s) {full['giant2_s']:.3f} s wall, peak {full['giant2_peak_gb']:.2f} GB"
+                 if size["giant2"] else ""))
+        if not full["ok"]:
+            raise AssertionError(f"neural full width: {full}")
+        vs = neural_card_vs_cpu(dev, size, images, rgbs, intr)
+        print(f"neural card vs CPU: SuperPoint keypoints in common {vs['sp_share']:.4f} (bound {KP_COMMON}), largest "
+              f"offset {vs['sp_offset']:.2e} px, descriptors {vs['sp_desc_gap']:.2e} (bound {DESC_TOL}); LightGlue "
+              f"float32 at {size['cpu_keypoints']} keypoints: scores {vs['lg_score_gap']:.2e} (bound {DESC_TOL} x max "
+              f"|score| {vs['lg_score_max']:.4g}; the card with the plain attention {vs['lg_plain_gap']:.2e}), "
+              f"matches equal {vs['lg_match_share']:.4f} ({vs['lg_matches']} mutual); NetVLAD {vs['netvlad_gap']:.2e} "
+              f"(bound {NETVLAD_TOL}); Metric3Dv2-small at {size['cpu_crop']}: depth {vs['m3d_depth_rel']:.2e}, "
+              f"normals {vs['m3d_normals_rel']:.2e} (bound {M3D_REL})")
+        if not vs["ok"]:
+            raise AssertionError(f"neural card vs CPU: {vs}")
+        k4 = k4_phase(dev, kept, size) if dev.type == "cuda" else {}
+        del kept
+        pipe, launches = neural_pipeline(dev, counted, size, paths, data)
+    print(f"neural extraction phase: {time.perf_counter() - t0:.1f} s wall")
+    return dict(full=full, card_vs_cpu=vs, pipeline=pipe, launches=launches), launches, k4
+
+
 # ---- the sparse BA solver (slice 8) ----
 
 # the JAX package's 500+ image BA bench (scripts/bench_ba_large.py): __graft_entry__'s
@@ -4164,7 +4881,7 @@ def dist_job_pair(dev, rank, size):
                                        f"right-hand side (K={S.shape[0]})")
     if rank == 0:
         out["single"] = solve_ba_reference(convert.ba_data(arrays, device=dev), dev, DIST_BENCH_ITERS)
-    counted = kernels.all_kernels()
+    counted = [k for k in kernels.all_kernels() if k.name != "attention"]  # the mapper's kernels (K4 is LightGlue's)
     for k in counted:
         k.launches = 0
     decisions, wall, ate = run_dist_mapper(dev, "on", 2)
@@ -4397,6 +5114,7 @@ def main():
     from mpsfm_tpu_torch import convert, kernels
     from mpsfm_tpu_torch.ba import cholesky
     from mpsfm_tpu_torch.ba.covariance import point_covariances
+    from mpsfm_tpu_torch.extraction.matchers import attention
     from mpsfm_tpu_torch.integration import bini_diag, bini_fused
 
     dev = torch.device("cuda:0")
@@ -4457,6 +5175,8 @@ def main():
     _, pipeline_launches = pipeline_phase(dev, counted)
     pipeline_card_vs_cpu(dev)
     _, dense_launches, dense_k1 = dense_modes_phase(dev, counted)
+    print(f"neural extraction phase on {card_line()}")
+    _, neural_launches, k4 = neural_phase(dev, {**counted, "attention": attention.KERNEL})
     _, sparse_launches = sparse_ba_phase(dev, counted)
     dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
@@ -4489,10 +5209,23 @@ def main():
         ))
         print(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library {k['library_ms']}, "
               f"bound {bound:.5f} ms), {n} launches on the main path")
+    # K4 at the neural phase's largest bucket, its first self-attention call in float32, the kernel's one type
+    # (the pipeline's bfloat16 operands reach it cast to float32); launches from that phase's pipeline run
+    big = max(b for _, b, _ in k4)
+    k = k4[("self", big, "float32")]
+    bound = max(k["ops_ms"], k["bytes_ms"])
+    rows.append(dict(
+        name=f"lightglue_attention (bucket {big})", route="cuda", source="mpsfm_tpu_torch/csrc/attention.cu",
+        replaces="mpsfm_tpu/extraction/matchers/lightglue.py:322", launches=neural_launches["attention"],
+        max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=bound,
+        bound_by="operations" if k["ops_ms"] >= k["bytes_ms"] else "bytes", library_ms=k["library_ms"]))
+    print(f"K4 at bucket {big}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} ms, "
+          f"bound {bound:.5f} ms), {neural_launches['attention']} launches in the neural pipeline run")
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")
     print(f"dense modes launches: {json.dumps(dense_launches)}")
+    print(f"neural extraction launches: {json.dumps(neural_launches)}")
     print(f"sparse BA launches: {json.dumps(sparse_launches)}")
     print(f"distributed BA launches: K1 {dist_k1_launches} on the dense-T route; the mapper on rank 0 "
           f"{json.dumps(dist_mapper_launches)}")

@@ -1,9 +1,10 @@
 """State of the JAX package, given as numpy arrays, turned into the port's.
 
-The port runs no learned weights; what carries over is the state the JAX
-package hands between its device programs, its cameras and poses, the
-depth-consistency check's grids and per-pair rows, and the scene's host
-state. Each device converter takes host arrays, e.g.
+What carries over is the state the JAX package hands between its device
+programs, its cameras and poses, the depth-consistency check's grids and
+per-pair rows, the scene's host state, and the weights of the neural
+extraction (SuperPoint, LightGlue, NetVLAD, Metric3Dv2), as the official
+checkpoint layouts the port loads. Each device converter takes host arrays, e.g.
 `{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
 and returns tensors on `device` (the card unless the caller asks for the
 CPU; no GPU raises, see `resolve_device`); `reconstruction` builds the
@@ -241,3 +242,71 @@ def correspondences(corr, rec, device="cuda"):
     out.inlier_match_scores = dict(corr.inlier_match_scores)
     out.cg.finalize()
     return out
+
+
+# ---- weights of the neural extraction: the JAX package's params -> the official checkpoint layouts ----
+
+def _cpu32(a):
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def superpoint_state_dict(jparams) -> dict:
+    """JAX SuperPoint flax params ({"params": {conv: {kernel (kh,kw,in,out),
+    bias}}}) -> the magicleap superpoint_v1.pth state dict (weights
+    (out,in,kh,kw)) on the CPU."""
+    sd = {}
+    for name, p in jparams["params"].items():
+        sd[f"{name}.weight"] = _cpu32(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+        sd[f"{name}.bias"] = _cpu32(p["bias"])
+    return sd
+
+
+def lightglue_state_dict(jparams, n_layers) -> dict:
+    """JAX LightGlue params (input_proj, Wr, self_{l}, cross_{l},
+    final_proj, matchability) -> the official superpoint_lightglue.pth
+    state dict under the post-rename names (transformers.{l}.*), on the
+    CPU; the JAX params_from_torch_state_dict maps it back to the same
+    arrays."""
+    sd = {}
+
+    def dense(prefix, p):
+        sd[f"{prefix}.weight"] = _cpu32(p["w"])
+        sd[f"{prefix}.bias"] = _cpu32(p["b"])
+
+    dense("input_proj", jparams["input_proj"])
+    sd["posenc.Wr.weight"] = _cpu32(jparams["Wr"])
+    for l in range(n_layers):
+        base = f"transformers.{l}"
+        sp, cp = jparams[f"self_{l}"], jparams[f"cross_{l}"]
+        for blk, p, names in ((f"{base}.self_attn", sp, (("Wqkv", "Wqkv"), ("out", "out_proj"))),
+                              (f"{base}.cross_attn", cp, (("to_qk", "to_qk"), ("to_v", "to_v"), ("out", "to_out")))):
+            for src, dst in names:
+                dense(f"{blk}.{dst}", p[src])
+            dense(f"{blk}.ffn.0", p["ffn0"])
+            sd[f"{blk}.ffn.1.weight"] = _cpu32(p["ffn_ln_g"])
+            sd[f"{blk}.ffn.1.bias"] = _cpu32(p["ffn_ln_b"])
+            dense(f"{blk}.ffn.3", p["ffn1"])
+    dense(f"log_assignment.{n_layers - 1}.final_proj", jparams["final_proj"])
+    dense(f"log_assignment.{n_layers - 1}.matchability", jparams["matchability"])
+    return sd
+
+
+def netvlad_params(jparams) -> dict:
+    """JAX NetVLAD params (conv{i} {w (3,3,I,O), b}, assign_*, centers,
+    whiten_*, preproc_mean) -> the port's param dict of host arrays
+    (conv kernels (O,I,3,3)); NetVLAD._to_device puts it on a device."""
+    out = {}
+    for k, v in jparams.items():
+        if isinstance(v, dict):
+            out[k] = {"w": np.ascontiguousarray(np.transpose(np.asarray(v["w"], np.float32), (3, 2, 0, 1))),
+                      "b": np.asarray(v["b"], np.float32)}
+        else:
+            out[k] = np.asarray(v, np.float32)
+    return out
+
+
+def metric3d_state_dict(jparams, prefix="") -> dict:
+    """JAX Metric3Dv2 params (a flat dict under the official names) -> a
+    state dict of CPU tensors with the same names (an identity on names),
+    each key preceded by `prefix` (the checkpoint's "depth_model.")."""
+    return {prefix + k: _cpu32(v) for k, v in jparams.items()}

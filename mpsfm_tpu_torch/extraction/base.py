@@ -11,9 +11,11 @@ extraction and mapping. The fork's measured-RGB-D injection
 The caches are HDF5 files (``cache_format: h5``, the JAX package's, which
 either package reads) or directory stores (``cache_format: npy``, for a
 host without h5py); utils.io.open_store picks by the path's suffix. The
-detector, the matchers (the mutual NN and the dense NCC flow) and the sky
-masks run on ``device``. Not ported yet, and raising: SuperPoint,
-LightGlue, NetVLAD and the neural dense matchers (ROADMAP queue 1 item 6).
+detectors (classical, SuperPoint), the matchers (the mutual NN, LightGlue,
+the dense NCC flow), NetVLAD retrieval, the Metric3Dv2 priors and the sky
+masks run on ``device``. Not ported yet, and raising: the neural dense
+matchers and their two-view depth, and the other neural priors (DSINE,
+DepthPro, DepthAnythingV2, vit_mono; ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -25,18 +27,22 @@ import numpy as np
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.config import BaseClass
 from mpsfm_tpu_torch.extraction.features.classical import ClassicalFeatures
+from mpsfm_tpu_torch.extraction.features.superpoint import SuperPoint
 from mpsfm_tpu_torch.extraction.masks import SkyMask
 from mpsfm_tpu_torch.extraction.matchers.dense_ncc import DenseNCCMatcher, assign_flow_to_keypoints
+from mpsfm_tpu_torch.extraction.matchers.lightglue import LightGlue
 from mpsfm_tpu_torch.extraction.matchers.nn import MutualNNMatcher
 from mpsfm_tpu_torch.extraction.pairs import pairs_exhaustive, pairs_from_retrieval, pairs_sequential
-from mpsfm_tpu_torch.extraction.priors import MissingDepthError, get_prior_backend, normals_from_depth
+from mpsfm_tpu_torch.extraction.priors import (MissingDepthError, MissingWeightsError, get_prior_backend,
+                                               normals_from_depth)
+from mpsfm_tpu_torch.extraction.retrieval import NetVLAD
 from mpsfm_tpu_torch.parallel.sharded_inference import run_sharded_batches
 from mpsfm_tpu_torch.utils import io
 from mpsfm_tpu_torch.utils.workqueue import WorkQueue
 
-FEATURE_MODELS = {"classical": ClassicalFeatures}
-MATCHER_MODELS = {"nn": MutualNNMatcher}
-NEURAL = "not ported yet (ROADMAP queue 1 item 6: neural extraction)"
+FEATURE_MODELS = {"superpoint": SuperPoint, "classical": ClassicalFeatures}
+MATCHER_MODELS = {"lightglue": LightGlue, "nn": MutualNNMatcher}
+NEURAL = "not ported yet (ROADMAP queue 1 item 6: the rest of the neural extraction)"
 NEURAL_DENSE = ("two_view", "mast3r_class", "mast3r", "warp", "roma_class", "roma")
 
 
@@ -59,10 +65,12 @@ class Extraction(BaseClass):
         "matches_mode": "sparse",  # sparse | dense | sparse+dense (+measured)
         "depth": "oracle",
         "normals": "from_depth",
+        "normals_conf": {},
         "pairs_type": "exhaustive",  # exhaustive | sequential | retrieval
         "n_retrieval": 20,
         "seq_overlap": 10,
-        "retrieval": "grid",  # grid | netvlad (not ported)
+        "retrieval": "grid",  # grid | netvlad (needs retrieval_conf.weights_path)
+        "retrieval_conf": {},
         "masks": "none",  # none | heuristic | onnx (sky masking)
         "mask_conf": {},
         "feature_conf": {},
@@ -98,16 +106,22 @@ class Extraction(BaseClass):
     # ---------- models ----------
     def _get_feature_model(self):
         if self.feature_model is None:
-            if self.conf.features not in FEATURE_MODELS:
-                raise NotImplementedError(f"features {self.conf.features!r}: {NEURAL}")
             self.feature_model = FEATURE_MODELS[self.conf.features](dict(self.conf.feature_conf), device=self.device)
+            if self.conf.features == "superpoint" and self.feature_model.net is None:
+                raise RuntimeError(
+                    "SuperPoint selected but no weights_path configured; "
+                    "use features='classical' or provide a checkpoint."
+                )
         return self.feature_model
 
     def _get_matcher(self):
         if self.matcher_model is None:
-            if self.conf.matcher not in MATCHER_MODELS:
-                raise NotImplementedError(f"matcher {self.conf.matcher!r}: {NEURAL}")
             self.matcher_model = MATCHER_MODELS[self.conf.matcher](dict(self.conf.matcher_conf), device=self.device)
+            if self.conf.matcher == "lightglue" and self.matcher_model.params is None:
+                raise RuntimeError(
+                    "LightGlue selected but no weights_path configured; "
+                    "use matcher='nn' or provide a checkpoint."
+                )
         return self.matcher_model
 
     # ---------- image loading ----------
@@ -144,10 +158,16 @@ class Extraction(BaseClass):
 
     def _global_descriptors(self, names):
         """Global descriptors for retrieval (reference
-        pairs_from_retrieval.py:47-114): the dependency-free grid-intensity
-        descriptor (OpenCV's resize to 16×16)."""
+        pairs_from_retrieval.py:47-114): NetVLAD on the device when
+        configured with weights (Pitts30K .mat or torch export), else the
+        dependency-free grid-intensity descriptor (OpenCV's resize to
+        16×16)."""
         if self.conf.retrieval == "netvlad":
-            raise NotImplementedError(f"netvlad retrieval: {NEURAL}")
+            nv = NetVLAD(dict(self.conf.retrieval_conf), device=self.device)
+            if nv.params is None:
+                self.log("netvlad retrieval requested without weights; grid fallback", level=0)
+            else:
+                return np.stack([nv(io.read_image(self.scene_parser.image_path(n))) for n in names])
         import cv2
 
         descs = []
@@ -253,8 +273,20 @@ class Extraction(BaseClass):
             lambda item: io.write_matches(path, item[0], item[1], item[2], item[3])
         )
         todo = [p for p in pairs if io.names_to_pair(*p) not in existing]
-        for name0, name1 in todo:
-            out = matcher(feat(name0), feat(name1))
+        if isinstance(matcher, LightGlue):
+            # image-major batched path: each image's features go into one device table once and the
+            # pairs gather their operands from it by index
+            names = sorted({n for p in todo for n in p})
+            idx_of = {n: i for i, n in enumerate(names)}
+            sizes = [io.read_image(self.scene_parser.image_path(n), True).shape[::-1] for n in names]
+            outs = matcher.match_pairs_from_table(
+                [(io.get_keypoints(self.paths["sfeats"], n), feat(n)) for n in names],
+                sizes,
+                [(idx_of[a], idx_of[b]) for a, b in todo],
+            )
+        else:
+            outs = (matcher(feat(name0), feat(name1)) for name0, name1 in todo)
+        for (name0, name1), out in zip(todo, outs):
             writer.put((name0, name1, out["matches0"], out["matching_scores0"]))
             self.log(f"matches {name0}-{name1}: {(out['matches0'] >= 0).sum()}", level=2)
         writer.join()
@@ -322,11 +354,15 @@ class Extraction(BaseClass):
                 depth = kw.get("depth_measured")
                 if depth is None:
                     if self.depth_backend is None:
-                        self.depth_backend = get_prior_backend(self.conf.depth, dict(self.conf.depth_conf))
+                        self.depth_backend = get_prior_backend(self.conf.depth, dict(self.conf.depth_conf),
+                                                               device=self.device)
+                    # the measured and oracle backends take no image
+                    rgb = (io.read_image(self.scene_parser.image_path(name))
+                           if getattr(self.depth_backend, "needs_image", False) else None)
                     try:
-                        # the ported backends (measured, oracle) take no image
-                        out = self.depth_backend(None, **kw)
-                    except MissingDepthError:  # an image without sensor depth is skipped, as in the reference
+                        out = self.depth_backend(rgb, **kw)
+                    except (MissingDepthError, MissingWeightsError):
+                        # an image without sensor depth, or a net without weights, is skipped, as in the reference
                         out = None
                     if out is None:
                         continue
@@ -360,14 +396,23 @@ class Extraction(BaseClass):
         if not todo:
             return dpath
         if self.depth_backend is None:
-            self.depth_backend = get_prior_backend(self.conf.depth, dict(self.conf.depth_conf))
+            self.depth_backend = get_prior_backend(self.conf.depth, dict(self.conf.depth_conf), device=self.device)
+        normals_backend = None
         if self.conf.normals not in (None, "", "from_depth"):
-            # a dedicated normals model (DSINE in the reference)
-            raise NotImplementedError(f"normals backend {self.conf.normals!r}: {NEURAL}")
+            # a dedicated normals model (reference: DSINE runs apart from the depth model)
+            normals_backend = get_prior_backend(self.conf.normals, dict(self.conf.normals_conf), device=self.device)
         for name in todo:
             kw = self.scene_parser.prior_inputs(name)
-            # the ported backends (measured, oracle) take no image: the neural ones, which read it, are not ported
-            out = self.depth_backend(None, **kw)
+            # the measured and oracle backends take no image: it is read for the neural ones only
+            rgb = None
+            if getattr(self.depth_backend, "needs_image", False) or normals_backend is not None:
+                rgb = io.read_image(self.scene_parser.image_path(name))
+            out = self.depth_backend(rgb, **kw)
+            if normals_backend is not None:
+                try:
+                    out.update(normals_backend(rgb, **kw))
+                except MissingWeightsError:
+                    pass  # no weights in this environment: keep the depth-derived normals
             if "normals" not in out and "intrinsics" in kw:
                 fx, fy, cx, cy = kw["intrinsics"]
                 out["normals"] = normals_from_depth(out["depth"], fx, fy, cx, cy)

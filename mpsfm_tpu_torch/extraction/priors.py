@@ -1,18 +1,40 @@
-"""Prior backends of the main path: depth + normals with calibrated
-uncertainties (port of the numpy part of mpsfm_tpu/extraction/priors.py).
+"""Prior backends: depth + normals with calibrated uncertainties (port of
+mpsfm_tpu/extraction/priors.py).
 
 * ``measured``: RGB-D sensor depth at fixed 1% relative uncertainty — the
   tauzn-clock fork's use_measured path (extraction/base.py:177-224),
   normals derived from it geometrically (``normals_from_depth``);
-* ``oracle``: ground-truth maps given by the caller (tests).
+* ``oracle``: ground-truth maps given by the caller (tests);
+* ``metric3dv2-{small,large,giant2}``, their ``-fc`` (flip-consistency)
+  variants and ``metric3dv2-normals``: Metric3Dv2 (nets/metric3d.py) on the
+  device, once ``conf.weights_path`` names a checkpoint (a file, or a
+  registry name whose file is in $MPSFM_WEIGHTS_DIR or ./local/weights);
+  without one, calling the backend raises MissingWeightsError.
 
-The neural backends (Metric3Dv2, DepthPro, DepthAnythingV2, DSINE, the
-ViT-DPT net) are not ported yet: asking for one raises.
+The other neural backends (DepthPro, DepthAnythingV2, DSINE, the ViT-DPT
+net ``vit_mono``) are not ported yet: asking for one raises.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
+
+from mpsfm_tpu_torch.extraction.weights import maybe_resolve
+
+# Calibration constants per estimator (reference configs/defaults/*.yaml +
+# mpsfm/sfm/scene/image/depth.py:14-30).
+CALIBRATIONS = {
+    "metric3dv2-giant2": {"depth_uncertainty": 0.0263, "prior_std_multiplier": 3.33},
+    "metric3dv2-large": {"depth_uncertainty": 0.05, "prior_std_multiplier": 3.7757},
+    "metric3dv2-small": {"depth_uncertainty": 0.0433, "prior_std_multiplier": 2.045},
+    "depthpro": {"depth_uncertainty": 0.0875, "prior_uncertainty": False},
+    "depthanythingv2-outdoor": {"depth_uncertainty": 0.079, "prior_uncertainty": False},
+    "mast3r": {"depth_uncertainty": None, "prior_std_multiplier": 0.862},
+    "measured": {"depth_uncertainty": None, "prior_uncertainty": True},
+}
+NOT_PORTED = "not ported yet (ROADMAP queue 1 item 6: the rest of the neural extraction)"
 
 
 def normals_from_depth(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
@@ -43,6 +65,12 @@ def normals_from_depth(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
 class MissingDepthError(ValueError):
     """A depth backend was asked for an image that has no depth it can read
     (the measured backend, for an image without sensor depth)."""
+
+
+class MissingWeightsError(RuntimeError):
+    """A neural backend was called without a checkpoint (conf.weights_path
+    unset or not a file): the one fault the mono loop's separate normals
+    backend may skip, keeping the depth-derived normals."""
 
 
 class MeasuredDepthBackend:
@@ -93,17 +121,117 @@ class SyntheticOracleBackend:
         return out
 
 
+# Architecture presets of the named neural backends: metric3dv2-* route to the exact Metric3Dv2
+# (nets/metric3d.py: giant2 ViT-g 1536x40, large ViT-L 1024x24, small ViT-S 384x12). The JAX package's
+# entries of the backends not ported yet (depthpro, depthanythingv2-outdoor, dsine) are kept for parity.
+ARCH_PRESETS = {
+    "metric3dv2-giant2": {"encoder": "vit_giant2_reg"},
+    # normals-only variant (reference defaults/*: normals from the default metric3dv2, its depth not kept)
+    "metric3dv2-normals": {"encoder": "vit_giant2_reg", "normals_only": True},
+    "metric3dv2-large": {"encoder": "vit_large_reg"},
+    "metric3dv2-small": {"encoder": "vit_small_reg"},
+    "depthpro": {"dim": 1024, "depth_blocks": 24, "num_heads": 16, "feat": 256},
+    "depthanythingv2-outdoor": {"dim": 1024, "depth_blocks": 24, "num_heads": 16, "feat": 256},
+    "dsine": {"dim": 384, "depth_blocks": 12, "num_heads": 6, "feat": 128},
+}
+
+
+class NeuralDepthBackend:
+    """Named neural depth/normal backends: the metric3dv2 family. Per-name
+    uncertainty calibrations and arch presets are applied; the ``-fc``
+    variants add the flipped pass. The net activates once
+    ``conf.weights_path`` is a file; without it, calling the backend
+    raises MissingWeightsError (the repository ships no checkpoint).
+    Replaces the reference wrappers at
+    mpsfm/extraction/imagewise/geometry/models/depth/metric3dv2.py:29-120."""
+
+    needs_image = True
+
+    def __init__(self, name, conf=None, device="cuda"):
+        self.name = name
+        conf = dict(conf or {})
+        base = name[:-3] if name.endswith("-fc") else name
+        if not base.startswith("metric3dv2"):
+            raise NotImplementedError(f"prior backend {name!r}: {NOT_PORTED}")
+        for k, v in ARCH_PRESETS.get(base, {}).items():
+            conf.setdefault(k, v)
+        for k, v in CALIBRATIONS.get(base, {}).items():
+            if v is not None:
+                conf.setdefault(k, v)
+        if name.endswith("-fc"):
+            conf.setdefault("flip_consistency", True)
+        conf.setdefault("canonical_focal", 1000.0)
+        self.conf = conf
+        self.backend = None
+        self._missing = ""
+        wp = conf.get("weights_path")
+        if wp:  # a file, or a registry name looked for in $MPSFM_WEIGHTS_DIR and ./local/weights
+            try:
+                wp = maybe_resolve(wp)
+            except FileNotFoundError as e:
+                self._missing = f" {e}"
+            else:
+                if Path(wp).exists():
+                    conf["weights_path"] = wp
+                    self.backend = _Metric3DBackend(conf, device)
+                else:
+                    self._missing = f" weights_path {wp!r} is not a file."
+
+    def __call__(self, image_rgb, **kw):
+        if self.backend is not None:
+            return self.backend(image_rgb, **kw)
+        raise MissingWeightsError(
+            f"Depth backend '{self.name}' has no weights in this environment. "
+            "Use 'measured' (RGB-D), provide cached priors, or supply conf.weights_path." + self._missing
+        )
+
+
+class _Metric3DBackend:
+    """Metric3Dv2 -> metric depth + normal priors: the scale-canonical
+    transform, the confidence -> error model and the BNI coordinates of the
+    reference wrapper (metric3dv2.py:29-120), plus the flipped second pass
+    of the flip-consistency configs (:88-109)."""
+
+    def __init__(self, conf, device="cuda"):
+        from mpsfm_tpu_torch.extraction.nets.metric3d import Metric3Dv2
+
+        self.net = Metric3Dv2(conf, device=device)
+        if self.net.params is None:
+            self.net.init_random(0)
+        self.flip_consistency = bool(conf.get("flip_consistency", False))
+        self.normals_only = bool(conf.get("normals_only", False))
+
+    def __call__(self, image_rgb, intrinsics=None, **kw):
+        if intrinsics is None:
+            h, w = np.asarray(image_rgb).shape[:2]
+            intrinsics = (max(h, w) * 1.2, max(h, w) * 1.2, w / 2, h / 2)
+        out = self.net.infer_image(image_rgb, intrinsics)
+        if self.flip_consistency:
+            out2 = self.net.infer_image(image_rgb, intrinsics, flip=True)
+            out.update({
+                "depth2": out2["depth"],
+                "depth_variance2": out2["depth_variance"],
+                "normals2": out2["normals"],
+                "normals2_variance": out2["normals_variance"],
+                "valid2": out2["valid"],
+            })
+        if self.normals_only:
+            out = {k: v for k, v in out.items() if k.startswith("normals")}
+        return out
+
+
 BACKENDS = {
     "measured": MeasuredDepthBackend,
     "oracle": SyntheticOracleBackend,
 }
 
 
-def get_prior_backend(name: str, conf=None):
-    name = str(name).lower()  # reference config names like DSINE-kappa-fc
+def get_prior_backend(name: str, conf=None, device="cuda"):
+    """The backend of a config name (case-insensitive, as the reference's
+    DSINE-kappa-fc); the neural ones run on `device`."""
+    name = str(name).lower()
     if name in BACKENDS:
         return BACKENDS[name](conf)
-    raise NotImplementedError(
-        f"prior backend {name!r} is a neural net, not ported yet (ROADMAP queue 1, item 6: neural "
-        "extraction); the port has the 'measured' and 'oracle' backends"
-    )
+    if name.startswith("vit_mono"):
+        raise NotImplementedError(f"prior backend {name!r}: {NOT_PORTED}")
+    return NeuralDepthBackend(name, conf, device=device)

@@ -20,14 +20,38 @@ import torch
 EIGH_CHUNK = 16384
 
 
+def _eigh(S):
+    """torch.linalg.eigh, again in float64 for a float32 batch it refuses:
+    cuSOLVER's batched float32 Jacobi does not converge on nearly repeated
+    eigenvalues, which FᵀF of an essential-like F has (two equal singular
+    values; 3.87781 and 3.87782 in an H100 run), where float64 and the CPU's
+    LAPACK do. The library checks convergence with a host read anyway."""
+    try:
+        return torch.linalg.eigh(S)
+    except torch.linalg.LinAlgError:
+        if S.dtype != torch.float32:
+            raise
+        w, v = torch.linalg.eigh(S.double())
+        return w.float(), v.float()
+
+
 def eigh(S):
     """torch.linalg.eigh of symmetric S (..., n, n), ascending, for a batch of
-    any size (in chunks of EIGH_CHUNK matrices)."""
+    any size (in chunks of EIGH_CHUNK matrices). A matrix with a non-finite
+    entry gives NaN eigenvalues and vectors, as jnp.linalg.eigh does, where
+    the library raises for the whole batch (a degenerate RANSAC sample's
+    hypothesis is then rejected, not the call)."""
+    bad = ~torch.isfinite(S).all(-1).all(-1)
+    S = torch.where(bad[..., None, None], torch.eye(S.shape[-1], dtype=S.dtype, device=S.device), S)
     batch = S.shape[:-2]
     if batch.numel() <= EIGH_CHUNK:
-        return torch.linalg.eigh(S)
-    parts = [torch.linalg.eigh(c) for c in S.reshape(-1, *S.shape[-2:]).split(EIGH_CHUNK)]
-    return torch.cat([w for w, _ in parts]).reshape(*batch, -1), torch.cat([v for _, v in parts]).reshape(S.shape)
+        w, v = _eigh(S)
+    else:
+        parts = [_eigh(c) for c in S.reshape(-1, *S.shape[-2:]).split(EIGH_CHUNK)]
+        w = torch.cat([w for w, _ in parts]).reshape(*batch, -1)
+        v = torch.cat([v for _, v in parts]).reshape(S.shape)
+    nan = torch.full((), float("nan"), dtype=S.dtype, device=S.device)
+    return torch.where(bad[..., None], nan, w), torch.where(bad[..., None, None], nan, v)
 
 
 def det3(M):

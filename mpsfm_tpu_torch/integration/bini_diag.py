@@ -158,7 +158,9 @@ def deflation(st: Stencil, dg) -> Deflation:
     hz = matvec(Stencil(*(f[:, None] for f in st)), Z[None])  # (B,3,H,W)
     E = torch.einsum("mhw,bnhw->bmn", Z, hz)
     tr = E.diagonal(dim1=-2, dim2=-1).sum(-1)
-    einv = torch.linalg.inv(E + 1e-10 * tr[:, None, None] * torch.eye(3, dtype=E.dtype, device=E.device))
+    # a lane whose operator is 0 (no weight anywhere) gives a non-finite E⁻¹, as jnp.linalg.inv does;
+    # torch.linalg.inv would raise for the whole batch
+    einv = torch.linalg.inv_ex(E + 1e-10 * tr[:, None, None] * torch.eye(3, dtype=E.dtype, device=E.device))[0]
     return Deflation(1.0 / torch.clamp(dg, min=1e-5), lin_x, lin_y, hz, einv)
 
 

@@ -371,3 +371,22 @@ def test_global_mode_equals_shared_mode_on_card(rng, cuda):
     glob = bini_diag._pcg_cuda(st, dfl, rows, cols, 16, pl._replace(gmem=True, smem=bini_diag.smem_bytes(
         145, 193, pl.C, pl.R, gmem=True)))
     assert torch.equal(glob, shared)
+
+
+def test_deflation_of_a_lane_without_weight_is_non_finite_as_in_jax(rng):
+    """A lane whose operator is 0 (no depth weight anywhere) has a singular
+    E: its E⁻¹ is non-finite, as jnp.linalg.inv gives, where
+    torch.linalg.inv raises for the whole batch; the other lane's is the
+    library's inverse."""
+    H, W = 6, 7
+    f = torch.tensor(rng.uniform(0.5, 1.5, size=(3, 2, H, W)), dtype=torch.float32)
+    f[:, 1] = 0
+    st = bini_diag.Stencil(*f)
+    dfl = bini_diag.deflation(st, st.pa + 1.0)
+    assert torch.isfinite(dfl.einv[0]).all() and not torch.isfinite(dfl.einv[1]).all()
+    Z = bini_diag.basis(dfl.lin_x, dfl.lin_y)
+    E = torch.einsum("mhw,bnhw->bmn", Z, dfl.hz)
+    tr = E.diagonal(dim1=-2, dim2=-1).sum(-1)
+    A = E + 1e-10 * tr[:, None, None] * torch.eye(3)
+    np.testing.assert_array_equal(dfl.einv[0].numpy(), torch.linalg.inv(A[:1])[0].numpy())
+    assert not np.isfinite(np.asarray(jnp.linalg.inv(jnp.asarray(A[1].numpy())))).all()

@@ -221,7 +221,7 @@ def test_measured_priors_equal_jax(rng):
         for k in j:
             assert np.abs(np.asarray(j[k], np.float64) - np.asarray(t[k], np.float64)).max() <= 1e-12, (backend, k)
     with pytest.raises(NotImplementedError, match="item 6"):
-        tpriors.get_prior_backend("metric3dv2-giant2")
+        tpriors.get_prior_backend("depthpro")
 
 
 def test_simple_parser_equals_jax(scene_dir, tmp_path):
@@ -327,11 +327,11 @@ def test_extraction_caches_read_across_packages(scene_dir, tmp_path, monkeypatch
 def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
     parser = TParser(scene_dir)
     for conf, call, what in (
-        ({"features": "superpoint"}, lambda ex: ex.extract_features(), "item 6"),
-        ({"matcher": "lightglue"}, lambda ex: ex._get_matcher(), "item 6"),
+        ({"depth": "measured", "normals": "dsine-kappa-fc"}, lambda ex: ex.extract_mono(), "item 6"),
+        ({"depth": "vit_mono"}, lambda ex: ex.extract_mono(), "item 6"),
         ({"dense_matcher": "roma"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
         ({"dense_matcher": "mast3r"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
-        ({"pairs_type": "retrieval", "retrieval": "netvlad"}, lambda ex: ex.extract_pairs(), "item 6"),
+        ({"depth": "depthanythingv2-outdoor"}, lambda ex: ex.extract_mono(), "item 6"),
     ):
         with pytest.raises(NotImplementedError, match=what):
             call(TExtraction(conf, parser, tmp_path / "c", device="cpu"))

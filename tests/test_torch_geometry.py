@@ -251,3 +251,22 @@ def test_eigh_in_chunks_equals_one_call(rng, monkeypatch):
     assert wc.shape == w.shape and vc.shape == v.shape
     np.testing.assert_array_equal(wc.numpy(), w.numpy())
     np.testing.assert_array_equal(vc.numpy(), v.numpy())
+
+
+def test_eigh_of_a_non_finite_matrix_is_nan_as_in_jax(rng):
+    """A degenerate sample's NaN or inf matrix gives NaN eigenvalues and
+    vectors, as jnp.linalg.eigh does (the library raises for the whole
+    batch); the other matrices are the library's."""
+    A = rng.normal(size=(4, 3, 3)).astype(np.float32)
+    S = A @ A.transpose(0, 2, 1)
+    S[1, 0, 2] = S[1, 2, 0] = np.nan
+    S[3] = np.inf
+    w, v = tla.eigh(torch.tensor(S))
+    wj, vj = jnp.linalg.eigh(jnp.asarray(S))
+    for b in (1, 3):
+        assert np.isnan(w[b].numpy()).all() and np.isnan(v[b].numpy()).all()
+        assert np.isnan(np.asarray(wj[b])).all()
+    w0, v0 = torch.linalg.eigh(torch.tensor(S[[0, 2]]))
+    np.testing.assert_array_equal(w[[0, 2]].numpy(), w0.numpy())
+    np.testing.assert_array_equal(v[[0, 2]].numpy(), v0.numpy())
+

@@ -1,11 +1,13 @@
-"""The port stands alone, parallel/ included: it imports neither jax nor
-the JAX package nor, at import time, OpenCV, onnxruntime, PyYAML or h5py
-(the image decoder, the artifact store and the intrinsics reader of the
-main path, the dense matcher and the sky masks need none of them), its
+"""The port stands alone, parallel/ and the neural extraction included: it
+imports neither jax nor the JAX package nor, at import time, OpenCV,
+onnxruntime, PyYAML, h5py or scipy.io (the image decoder, the artifact
+store and the intrinsics reader of the main path, the dense matcher, the
+sky masks and the nets need none of them), reads none of the JAX
+package's files (the pinned checkpoint manifests are its own copies), its
 state-creating entry points refuse to fall back to the CPU, and
 chip_smoke.py gives no result without a card or without the package.
-The card-only cases hold the dense NCC flow and the sky masks, card
-against CPU, at chip_smoke.py's shapes.
+The card-only cases hold the dense NCC flow, the sky masks and the neural
+extraction, card against CPU, at chip_smoke.py's shapes.
 
 The import check runs in a subprocess because tests/conftest.py imports
 jax and mpsfm_tpu into this one.
@@ -59,7 +61,17 @@ need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag"
         "mpsfm_tpu_torch.extraction.base", "mpsfm_tpu_torch.eval", "mpsfm_tpu_torch.pipeline", "mpsfm_tpu_torch.cli",
         "mpsfm_tpu_torch.parallel", "mpsfm_tpu_torch.parallel.dist_ba", "mpsfm_tpu_torch.parallel.multihost",
         "mpsfm_tpu_torch.parallel.sharded_inference", "mpsfm_tpu_torch.extraction.matchers.dense_ncc",
-        "mpsfm_tpu_torch.extraction.guided_filter", "mpsfm_tpu_torch.extraction.masks"}
+        "mpsfm_tpu_torch.extraction.guided_filter", "mpsfm_tpu_torch.extraction.masks",
+        "mpsfm_tpu_torch.extraction.manifest", "mpsfm_tpu_torch.extraction.weights",
+        "mpsfm_tpu_torch.extraction.features.superpoint", "mpsfm_tpu_torch.extraction.matchers.attention",
+        "mpsfm_tpu_torch.extraction.matchers.lightglue", "mpsfm_tpu_torch.extraction.retrieval",
+        "mpsfm_tpu_torch.extraction.nets", "mpsfm_tpu_torch.extraction.nets.depth_anything",
+        "mpsfm_tpu_torch.extraction.nets.metric3d"}
+# the pinned manifests are the port's own copies, not the JAX package's files
+from mpsfm_tpu_torch.extraction import manifest
+bad += [] if manifest.MANIFEST_DIR.parent.parent.name == "mpsfm_tpu_torch" else [str(manifest.MANIFEST_DIR)]
+# the neural extraction imports scipy only to read a .mat checkpoint, when called
+bad += sorted(m for m in ("scipy.io",) if m in sys.modules)
 # the card's host has no OpenCV and no onnxruntime: no module of the port imports them at import time
 bad += sorted(m for m in ("cv2", "onnxruntime") if m in sys.modules)
 print(len(names), bad)
@@ -162,6 +174,34 @@ def test_dense_and_mask_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
             call()
     assert sky_mask_heuristic(img, device="cpu").device.type == "cpu"
     assert sky_mask_heuristic(torch.as_tensor(img)).device.type == "cpu"
+
+
+def test_neural_extraction_entry_points_refuse_the_cpu_without_a_card(monkeypatch):
+    """SuperPoint, LightGlue, NetVLAD and Metric3Dv2 put their weights on the
+    card unless the caller asks for the CPU; a Metric3Dv2 backend with a
+    checkpoint builds its net on the card."""
+    from mpsfm_tpu_torch.extraction.features.superpoint import SuperPoint
+    from mpsfm_tpu_torch.extraction.matchers.lightglue import LightGlue
+    from mpsfm_tpu_torch.extraction.nets.metric3d import Metric3Dv2
+    from mpsfm_tpu_torch.extraction.retrieval import NetVLAD
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: SuperPoint(), lambda: LightGlue(), lambda: NetVLAD(), lambda: Metric3Dv2()):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    lg = LightGlue({"dim": 32, "num_heads": 2, "n_layers": 1}, device="cpu")
+    lg.init_random(0)
+    assert lg.params["self_0"]["Wqkv"]["w"].device.type == "cpu"
+
+
+@pytest.mark.cuda
+def test_neural_extraction_card_vs_cpu():
+    """chip_smoke.neural_card_vs_cpu at its small size: SuperPoint,
+    LightGlue (K4), NetVLAD and Metric3Dv2-small on the card against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    out = chip_smoke.neural_card_vs_cpu(torch.device("cuda"), chip_smoke.NEURAL_SIZES["small"])
+    assert out["ok"], out
 
 
 @pytest.mark.cuda
