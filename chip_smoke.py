@@ -227,7 +227,13 @@
    manifest-checked. (a) At full width on the card: SuperPoint (6000
    keypoints, NMS radius 4, threshold 0.005) on the pipeline render cut to 5
    images of 640×480, LightGlue (9 × 256 × 4 heads) on every pair of them in
-   bfloat16 and float32, timed per pair at the run's bucket and at 2048,
+   bfloat16 and float32, timed per pair at the run's bucket and at 2048
+   (each type's launches of K4's two kernels counted: its own kernel 36
+   times a forward, the other never), the seeded LightGlue's bfloat16
+   matches0 with K4 against the plain attention on the card, on (d)'s
+   SuperPoint features of the images (every mutual argmax kept; at least
+   99% of the entries equal; the plain bfloat16 run against float32
+   printed beside it),
    NetVLAD (K = 64, D = 512, resize_max 640), Metric3Dv2-small at its
    616×1064 crop (44×76 patches + 5 tokens), and Metric3Dv2-giant2 once
    (weights drawn on the card; finite, shaped; wall and peak memory
@@ -236,10 +242,11 @@
    LightGlue's float32 scores (1e-4) and mutual-argmax matches (>= 99%) on
    one pair cut to 1024 keypoints, the NetVLAD descriptor (1e-4 of its
    largest entry), Metric3Dv2-small's depth and normals (1e-3 relative) at a
-   308×532 crop. (c) K4 (attention.cu) against attention_plain at the
-   shapes LightGlue ran (its first self- and cross-attention call at each
-   bucket, in each type) and at hd = 16: float32 within 2e-5, bfloat16
-   within one bfloat16 ulp of the plain float32 result; K4, the plain version
+   308×532 crop. (c) K4 against attention_plain at the shapes LightGlue
+   ran (its first self- and cross-attention call at each bucket, in each
+   type) and at hd = 16: float32 (attention.cu) within 2e-5, bfloat16 (the
+   tensor-core attention_tc.cu) within k4_bf16_bound (2u · plain(q, k, |v|)
+   + one bfloat16 ulp + 2e-5, u = 2^-8); each kernel, the plain version
    and scaled_dot_product_attention (timed only) timed, the bound (over the
    real keys: a masked key's weight is 0) printed.
    (d) The port's reconstruct under configs/sp-lg_m3dv2-small.yaml with
@@ -250,7 +257,8 @@
    seeded pair keeps no match: held that it reaches its end, every net's tensors
    and every stage on the card, the pairs from NetVLAD, the feature, match
    and depth stores written, the depth store equal to a direct infer_image,
-   K4 launched 36 times a LightGlue forward, matches kept, at least 2
+   K4's tensor-core kernel launched 36 times a (bfloat16) LightGlue
+   forward and the float32 one never, matches kept, at least 2
    images registered with points, K1 and K2 launched; printed: each pipe.*
    wall, the matches a pair, registered images, points and the launches.
    How many images register, the points' count and ATE are not held: the
@@ -268,7 +276,8 @@ own), the mapping phase's lines and launches, the pipeline phase's lines
 and launches, the dense modes phase's lines and launches, the sparse BA phase's lines and launches,
 the distributed BA's lines and launches, the neural extraction's lines and launches, a `{"kernels":
 [...]}` line (K1 twice more, at the dense modes phase's last global BA and at the distributed BA's dense-T
-route; K4 in bfloat16 and in float32 at the neural phase's largest bucket), and last
+route; K4's tensor-core kernel in bfloat16 with (d)'s launches and its float32 kernel with (a)'s float32
+launches, both at the neural phase's largest bucket), and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -3510,12 +3519,17 @@ NEURAL_SIZES = {
 # run is held within DESC_TOL of that plain-attention run's distance.
 NETVLAD_TOL, M3D_REL = 1e-4, 1e-3
 # K4 against attention_plain: float32 within K4_TOL (the JAX package's own bound between its attention paths,
-# tests/test_extraction.py); bfloat16 within one bfloat16 ulp of the plain version's float32 result on the
-# same rounded inputs, plus K4_TOL where that result is near zero (float32's summation order alone moves an
-# output of the weighted mean by ~1e-6 absolute, more than one ulp of a value near zero)
+# tests/test_extraction.py); bfloat16 (the tensor-core route, which rounds P to bfloat16 for P·V as the JAX
+# package's bfloat16 paths do) within k4_bf16_bound: 2u times the plain version on |v| (each weight's rounding
+# moves its term by at most u of its size), one bfloat16 ulp of the plain result (the output's rounding) and
+# K4_TOL (float32's summation order), u = 2^-8 bfloat16's unit roundoff
 K4_TOL = 2e-5
+BF16_U = 2.0 ** -8
 # (d) on the card: the mapping pair's matches take the mapper to at least its initial pair
 NEURAL_MIN_REG = 2
+# (a): LightGlue's bfloat16 matches0 with K4 against the plain attention on the card, the share of equal entries;
+# the JAX package's own bfloat16 run agrees with its float32 one on 99.54% (tests/test_torch_lightglue.py)
+LG_BF16_AGREE = 0.99
 PEAK_BF16 = 989e12  # the H100 SXM's dense bfloat16 tensor-core rate: K4's bound for bfloat16 inputs
 
 
@@ -3678,16 +3692,20 @@ def neural_full_width(dev, paths, size, images, rgbs, intr):
     pairs = [(a, b) for a in range(len(images)) for b in range(a + 1, len(images))]
     cut = size["k4_small_bucket"]
     small = [(f["keypoints"][:cut], f["descriptors"][:cut]) for f in feats[:2]]
-    kept_all, lg_times = {}, {}
+    kept_all, lg_times, k4_launches = {}, {}, {}
     for dt in ("bfloat16", "float32"):
         lg = LightGlue({**conf["matcher_conf"], "dtype": dt}, device=dev)
         lg.match_pairs_from_table(table[:2], whs[:2], [(0, 1)])  # warm-up
         with attention_spy() as (kept, forwards):
+            for k in k4_kernels():
+                k.launches = 0
             sync(dev)
             t = time.perf_counter()
             res = lg.match_pairs_from_table(table, whs, pairs)
             sync(dev)
             wall = time.perf_counter() - t
+            k4_launches[dt] = {k.name: k.launches for k in k4_kernels()}
+            k4_launches[dt]["forwards"] = forwards[0]
             t = time.perf_counter()
             lg.match_pairs_from_table(small, whs[:2], [(0, 1)])
             sync(dev)
@@ -3698,6 +3716,13 @@ def neural_full_width(dev, paths, size, images, rgbs, intr):
         out[f"matches_{dt}"] = [int((r["matches0"] >= 0).sum()) for r in res]
         out[f"forwards_{dt}"] = forwards[0]
     out["lightglue_s_per_pair"] = lg_times
+    out["k4_launches"] = k4_launches
+    # the seeded SuperPoint's descriptors are nearly equal (a cosine of 0.9999), so its matches are ties that any
+    # rounding flips; the agreement runs on (d)'s He-normal SuperPoint's features of the same images
+    sp_m = SuperPoint(neural_conf(paths, size, mapping=True)["extractors"]["feature_conf"], device=dev)
+    table_m = [(f["keypoints"], f["descriptors"]) for f in sp_m.batch(images)]
+    del sp_m
+    out["bf16_agreement"] = lightglue_bf16_agreement(dev, conf["matcher_conf"], table_m, whs, pairs)
     nv = NetVLAD(conf["retrieval_conf"], device=dev)
     nv(rgbs[0])
     sync(dev)
@@ -3736,8 +3761,46 @@ def neural_full_width(dev, paths, size, images, rgbs, intr):
                                 and np.isfinite(m["normals"]).all())
         del g2, params
         torch.cuda.empty_cache()
-    out["ok"] = out["netvlad_finite"] and out["metric3d_ok"] and out.get("giant2_ok", True)
+    # on the card each type's LightGlue reaches its own kernel only, 36 times a forward
+    dispatch_ok = dev.type != "cuda" or all(
+        k4_launches[dt][own] == 36 * k4_launches[dt]["forwards"] > 0 and k4_launches[dt][other] == 0
+        for dt, own, other in (("bfloat16", "attention_tc", "attention"), ("float32", "attention", "attention_tc")))
+    out["ok"] = (out["netvlad_finite"] and out["metric3d_ok"] and out.get("giant2_ok", True) and dispatch_ok
+                 and out["bf16_agreement"]["share"] >= LG_BF16_AGREE)
     return feats, kept_all, out
+
+
+def k4_kernels():
+    """K4's two kernels: the float32 one and the tensor-core bfloat16 one."""
+    from mpsfm_tpu_torch.extraction.matchers import attention as att
+
+    return att.KERNEL, att.KERNEL_TC
+
+
+def lightglue_bf16_agreement(dev, matcher_conf, table, whs, pairs):
+    """The seeded LightGlue (every mutual argmax kept: filter_threshold 0)
+    on `pairs` of the feature `table`: in bfloat16 once with K4 and once
+    with the plain attention, and in float32, on the same device. Returns
+    the share of matches0 entries the two bfloat16 runs agree on (held),
+    the share the plain bfloat16 run agrees with the float32 one on
+    (bfloat16's own spread, printed), the entries and the matched ones."""
+    from mpsfm_tpu_torch.extraction.matchers import attention as att
+    from mpsfm_tpu_torch.extraction.matchers import lightglue
+
+    runs = {}
+    for name, dt in (("k4", "bfloat16"), ("plain", "bfloat16"), ("float32", "float32")):
+        lg = lightglue.LightGlue({**matcher_conf, "dtype": dt, "filter_threshold": 0.0}, device=dev)
+        if name == "plain":
+            lightglue.attention = att.attention_plain
+        try:
+            runs[name] = np.concatenate([r["matches0"] for r in lg.match_pairs_from_table(table, whs, pairs)])
+        finally:
+            lightglue.attention = att.attention
+    k4, plain = runs["k4"], runs["plain"]
+    matched = (k4 >= 0) | (plain >= 0)
+    return dict(share=float((k4 == plain).mean()), share_bf16_f32=float((plain == runs["float32"]).mean()),
+                entries=int(k4.size), matches_k4=int((k4 >= 0).sum()), matches_plain=int((plain >= 0).sum()),
+                matched=int(matched.sum()), matched_equal=int((k4 == plain)[matched].sum()))
 
 
 def neural_card_vs_cpu(dev, size, images=None, rgbs=None, intr=None):
@@ -3843,36 +3906,53 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126))) - 7)
 
 
+def k4_bf16_bound(q, k, v, mask, scale):
+    """K4's bfloat16 rule on (q, k, v, mask, scale): the plain version's
+    float32 result on those inputs and the bound on |K4 - plain| per
+    element, 2u · attention_plain(q, k, |v|) + one bfloat16 ulp of the
+    plain result + K4_TOL. Returns (plain, bound)."""
+    from mpsfm_tpu_torch.extraction.matchers import attention as att
+
+    qf, kf, vf = q.float(), k.float(), v.float()
+    plain = att.attention_plain(qf, kf, vf, mask, scale)
+    return plain, 2 * BF16_U * att.attention_plain(qf, kf, vf.abs(), mask, scale) + bf16_ulp(plain) + K4_TOL
+
+
 def k4_check(what, args, reps=10):
-    """K4 against attention_plain on `args` (q, k, v, mask, scale): float32
-    within K4_TOL, bfloat16 within one bfloat16 ulp of the plain version's
-    float32 result on the same rounded inputs; K4, the plain version and the
-    library call (scaled_dot_product_attention with the key mask, timed only)
-    timed on the card; the bound from the FLOP over the real keys (at the
-    float32 or the bfloat16 tensor-core peak) and the bytes. Returns a row
-    dict."""
+    """K4 against attention_plain on `args` (q, k, v, mask, scale), through
+    the wrapper, which must launch the dtype's kernel once: float32 (the
+    CUDA-core kernel) within K4_TOL, bfloat16 (the tensor-core kernel)
+    within k4_bf16_bound; K4, the plain version and the library call
+    (scaled_dot_product_attention with the key mask, timed only) timed on
+    the card; the bound from the FLOP over the real keys (at the float32 or
+    the bfloat16 tensor-core peak) and the bytes. Returns a row dict."""
     import torch
     import torch.nn.functional as F
 
     from mpsfm_tpu_torch.extraction.matchers import attention as att
 
     q, k, v, mask, scale = args
-    n = att.KERNEL.launches
+    kernel = att.KERNEL if q.dtype == torch.float32 else att.KERNEL_TC
+    n = kernel.launches
     got = att.attention(q, k, v, mask, scale)
     torch.cuda.synchronize()
-    if att.KERNEL.launches != n + 1:
-        raise AssertionError(f"{what}: K4 was not launched")
-    ref = att.attention_plain(q.float(), k.float(), v.float(), mask, scale)
-    err = float((got.float() - ref).abs().max())
+    if kernel.launches != n + 1:
+        raise AssertionError(f"{what}: K4 ({kernel.name}) was not launched")
     if q.dtype == torch.float32:
+        ref = att.attention_plain(q, k, v, mask, scale)
+        err = float((got - ref).abs().max())
         ok, bound_txt = err <= K4_TOL, f"max |d| <= {K4_TOL}"
     else:
-        ok = bool((got.float() - ref).abs().le(bf16_ulp(ref) + K4_TOL).all())
-        bound_txt = f"within one bf16 ulp + {K4_TOL}"
+        ref, bound = k4_bf16_bound(q, k, v, mask, scale)
+        d = (got.float() - ref).abs()
+        err, ratio = float(d.max()), float((d / bound).max())
+        ok, bound_txt = ratio <= 1, f"at most {ratio:.3f} of 2u·plain(|v|) + ulp + {K4_TOL}"
+        del bound, d
     if not ok or not torch.isfinite(got.float()).all():
         raise AssertionError(f"{what}: K4 vs plain max |d| {err:.3e} ({bound_txt})")
+    del ref
     ms = cuda_ms(lambda: att.attention(q, k, v, mask, scale), reps)
-    att.KERNEL.launches = n  # launches made to compare and time K4 are not the path's
+    kernel.launches = n  # launches made to compare and time K4 are not the path's
     plain_ms = cuda_ms(lambda: att.attention_plain(q, k, v, mask, scale), 2)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     am = mask[:, None, None, :]
@@ -3882,9 +3962,10 @@ def k4_check(what, args, reps=10):
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + mask.numel()
     peak = PEAK_F32 if q.dtype == torch.float32 else PEAK_BF16
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    line = (f"{what}: K4 {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.4f} "
-            f"ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}, {flops / 1e9:.2f} GFLOP at "
-            f"{peak / 1e12:.0f} TFLOP/s), {flops / ms / 1e9:.2f} TFLOP/s achieved; max |d| {err:.3e} ({bound_txt})")
+    line = (f"{what}: K4 ({kernel.name}) {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA {lib_ms:.4f} ms, bound "
+            f"{max(ops_ms, bytes_ms):.4f} ms ({'operations' if ops_ms >= bytes_ms else 'bytes'}, "
+            f"{flops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s; {max(ops_ms, bytes_ms) / ms * 100:.1f}% of it), "
+            f"{flops / ms / 1e9:.2f} TFLOP/s achieved; max |d| {err:.3e} ({bound_txt})")
     print(line)
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, line=line)
 
@@ -4020,8 +4101,9 @@ def neural_pipeline(dev, counted, size, paths, data_dir):
     counts at 0 just before. Held: the run reaches its
     end; every net's tensors and every stage's work on `dev`; the pairs from
     NetVLAD's descriptors; the feature, match and depth stores written; the
-    depth store equal to a direct infer_image; K4 launched 36 times a LightGlue
-    forward; on the card, matches kept, at least NEURAL_MIN_REG images
+    depth store equal to a direct infer_image; K4's tensor-core kernel
+    launched 36 times a (bfloat16) LightGlue forward and the float32 one
+    not at all; on the card, matches kept, at least NEURAL_MIN_REG images
     registered with points, K1 and K2 launched. Not held (seeded weights):
     how many images register, the points' count, ATE. Prints each pipe.*
     phase's wall, the matches a pair and the launches."""
@@ -4079,8 +4161,11 @@ def neural_pipeline(dev, counted, size, paths, data_dir):
     if (any(v != [want] for v in on_dev.values()) or any(v and v != [want] for v in out["seen"].values())
             or not all(out["seen"][k] for k in ran)):
         problems.append(f"off {want}")
-    if want == "cuda" and (forwards[0] == 0 or launches.get("attention") != 36 * forwards[0]):
-        problems.append(f"K4 launches {launches.get('attention')} for {forwards[0]} forwards")
+    # the conf's bfloat16 LightGlue: every attention call on the tensor-core kernel, none on the float32 one
+    if want == "cuda" and (forwards[0] == 0 or launches.get("attention_tc") != 36 * forwards[0]
+                           or launches.get("attention") != 0):
+        problems.append(f"K4 launches {launches.get('attention_tc')} (tensor cores) and {launches.get('attention')} "
+                        f"(float32) for {forwards[0]} bfloat16 forwards")
     if want == "cuda" and (not any(per_pair) or out["registered"] < NEURAL_MIN_REG or out["points"] == 0
                            or not launches.get("cholesky") or not launches.get("bini")):
         problems.append(f"the mapper on the neural matches: registered {out['registered']}, {out['points']} "
@@ -4126,6 +4211,13 @@ def neural_phase(dev, counted, size="full"):
               + (f"; giant2 ({full['giant2_params'] / 1e9:.3f} B params, drawn on the card in "
                  f"{full['giant2_init_s']:.2f} s) {full['giant2_s']:.3f} s wall, peak {full['giant2_peak_gb']:.2f} GB"
                  if size["giant2"] else ""))
+        ag = full["bf16_agreement"]
+        print(f"neural extraction K4 launches by LightGlue type (each type's timed run): "
+              f"{json.dumps(full['k4_launches'])}; LightGlue bfloat16 matches0 on (d)'s SuperPoint features with K4 "
+              f"vs the plain attention on {dev.type}, every mutual argmax kept: {ag['share']:.4%} of {ag['entries']} "
+              f"entries equal (bound {LG_BF16_AGREE:.0%}; the plain bfloat16 run vs float32 {ag['share_bf16_f32']:.4%}),"
+              f" matches {ag['matches_k4']} / {ag['matches_plain']}, of the {ag['matched']} entries matched in "
+              f"either run {ag['matched_equal']} equal")
         if not full["ok"]:
             raise AssertionError(f"neural full width: {full}")
         vs = neural_card_vs_cpu(dev, size, images, rgbs, intr)
@@ -4881,7 +4973,8 @@ def dist_job_pair(dev, rank, size):
                                        f"right-hand side (K={S.shape[0]})")
     if rank == 0:
         out["single"] = solve_ba_reference(convert.ba_data(arrays, device=dev), dev, DIST_BENCH_ITERS)
-    counted = [k for k in kernels.all_kernels() if k.name != "attention"]  # the mapper's kernels (K4 is LightGlue's)
+    # the mapper's kernels (K4's two, float32 and tensor-core bfloat16, are LightGlue's)
+    counted = [k for k in kernels.all_kernels() if k.name not in ("attention", "attention_tc")]
     for k in counted:
         k.launches = 0
     decisions, wall, ate = run_dist_mapper(dev, "on", 2)
@@ -5176,7 +5269,9 @@ def main():
     pipeline_card_vs_cpu(dev)
     _, dense_launches, dense_k1 = dense_modes_phase(dev, counted)
     print(f"neural extraction phase on {card_line()}")
-    _, neural_launches, k4 = neural_phase(dev, {**counted, "attention": attention.KERNEL})
+    neural, neural_launches, k4 = neural_phase(dev, {**counted, "attention": attention.KERNEL,
+                                                     "attention_tc": attention.KERNEL_TC})
+    neural_k4_f32_launches = neural["full"]["k4_launches"]["float32"]["attention"]
     _, sparse_launches = sparse_ba_phase(dev, counted)
     dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
@@ -5209,18 +5304,24 @@ def main():
         ))
         print(f"{name}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library {k['library_ms']}, "
               f"bound {bound:.5f} ms), {n} launches on the main path")
-    # K4 at the neural phase's largest bucket, its first self-attention call in float32, the kernel's one type
-    # (the pipeline's bfloat16 operands reach it cast to float32); launches from that phase's pipeline run
+    # K4 at the neural phase's largest bucket, its first self-attention call: the tensor-core kernel (bfloat16)
+    # with its launches in the pipeline run (d), whose LightGlue is bfloat16; the float32 kernel with its launches
+    # in (a)'s float32 LightGlue run, the one path of the phase that reaches it
     big = max(b for _, b, _ in k4)
-    k = k4[("self", big, "float32")]
-    bound = max(k["ops_ms"], k["bytes_ms"])
-    rows.append(dict(
-        name=f"lightglue_attention (bucket {big})", route="cuda", source="mpsfm_tpu_torch/csrc/attention.cu",
-        replaces="mpsfm_tpu/extraction/matchers/lightglue.py:322", launches=neural_launches["attention"],
-        max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=bound,
-        bound_by="operations" if k["ops_ms"] >= k["bytes_ms"] else "bytes", library_ms=k["library_ms"]))
-    print(f"K4 at bucket {big}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library {k['library_ms']:.4f} ms, "
-          f"bound {bound:.5f} ms), {neural_launches['attention']} launches in the neural pipeline run")
+    for dt, name, src, launched in (
+        ("bfloat16", "lightglue_attention_tc", "attention_tc.cu", neural_launches["attention_tc"]),
+        ("float32", "lightglue_attention_f32", "attention.cu", neural_k4_f32_launches),
+    ):
+        k = k4[("self", big, dt)]
+        bound = max(k["ops_ms"], k["bytes_ms"])
+        rows.append(dict(
+            name=f"{name} (bucket {big})", route="cuda", source=f"mpsfm_tpu_torch/csrc/{src}",
+            replaces="mpsfm_tpu/extraction/matchers/lightglue.py:322", launches=launched,
+            max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=bound,
+            bound_by="operations" if k["ops_ms"] >= k["bytes_ms"] else "bytes", library_ms=k["library_ms"]))
+        print(f"K4 {dt} at bucket {big}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library "
+              f"{k['library_ms']:.4f} ms, bound {bound:.5f} ms), {launched} launches"
+              + (" in the neural pipeline run" if dt == "bfloat16" else " in the float32 LightGlue run of (a)"))
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")

@@ -5,15 +5,27 @@ LightGlue._attention).
 `attention(q, k, v, kv_mask, sm_scale)` returns softmax(q kᵀ · sm_scale) v
 with q (B, N, H, hd), k and v (B, M, H, hd), kv_mask (B, M) bool (False =
 a padded key, whose logit is -1e9) and out (B, N, H, hd) in q's dtype.
-On a CUDA tensor it launches the hand-written kernel csrc/attention.cu
-(the flash algorithm: one CTA a (query tile of 64, head, batch element),
-key tiles of 64 staged in shared memory and skipped when they hold no real
-key, float32 running max, sum and accumulator; hd 16 or 64, in float32:
-bfloat16 operands reach it as their float32 values and the result is
-rounded back, as the plain version does). On a CPU tensor it runs
-`attention_plain`, the JAX package's einsum path in float32. There is
-no fallback between the two: a CUDA tensor reaches the kernel or the call
-raises. KERNEL.launches counts the kernel's launches.
+On a CUDA tensor it launches one of K4's two hand-written kernels, by
+dtype, both for hd 16 and 64:
+
+- bfloat16 operands (LightGlue's default): csrc/attention_tc.cu, the
+  tensor-core route. The flash algorithm on wgmma with TMA-staged tiles:
+  one CTA a (128 queries, head, batch element), two consumer warpgroups,
+  K and V tiles of 64 keys through a 3-stage ring, Q·Kᵀ and P·V on the
+  tensor cores with float32 accumulators, running max and sum; P is
+  rounded to bfloat16 for P·V, as the JAX package's bfloat16 paths do,
+  and the result once to bfloat16. hd 64 takes 128-byte swizzled tiles,
+  hd 16 32-byte ones. KERNEL_TC.launches counts its launches.
+- float32 operands (the parity setting): csrc/attention.cu, the flash
+  algorithm on the CUDA cores in float32 (one CTA a query tile of 64, one
+  query row a thread; TF32 stays off). KERNEL.launches counts its
+  launches.
+
+Both skip a 64-key tile without a real key (its weights are exactly 0)
+unless the batch element has none. On a CPU tensor the wrapper runs
+`attention_plain`, the JAX package's einsum path in float32. There is no
+fallback between them: a CUDA tensor reaches its dtype's kernel or the
+call raises.
 """
 
 from __future__ import annotations
@@ -23,7 +35,8 @@ import torch
 from mpsfm_tpu_torch.kernels import F, I, P, Kernel, stream_ptr
 
 KERNEL = Kernel("attention", "attention.cu", {"attention_f32": [P, P, P, P, P, I, I, I, I, I, F, P]})
-HEAD_DIMS = (16, 64)  # the kernel's instantiations: the tests' LightGlue and the official one
+KERNEL_TC = Kernel("attention_tc", "attention_tc.cu", {"attention_bf16": [P, P, P, P, P, I, I, I, I, I, F, P]})
+HEAD_DIMS = (16, 64)  # the kernels' instantiations: the tests' LightGlue and the official one
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -57,15 +70,19 @@ def attention(q, k, v, kv_mask, sm_scale):
         raise ValueError(f"attention: unsupported device {q.device}")
     if hd not in HEAD_DIMS:
         raise ValueError(f"attention: head width {hd}; the kernel has {HEAD_DIMS}")
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16 and not sm_scale > 0:  # the tensor-core kernel takes row maxima of unscaled logits
+        raise ValueError(f"attention: the bfloat16 kernel takes a positive scale, not {sm_scale}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if B == 0 or N == 0:
-        return out.to(q.dtype)
-    qf, kf, vf = (t.float().contiguous() for t in (q, k, v))
-    kv_mask = kv_mask.contiguous()
-    KERNEL.call("attention_f32", qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
+        return out
+    # contiguous, and 16-byte aligned for the tensor-core route's TMA
+    q, k, v = (t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    kernel, fn = (KERNEL_TC, "attention_bf16") if q.dtype == torch.bfloat16 else (KERNEL, "attention_f32")
+    kernel.call(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.contiguous().data_ptr(), out.data_ptr(),
                 B, N, M, H, hd, float(sm_scale), stream_ptr(q))
-    KERNEL.launches += 1
-    return out.to(q.dtype)
+    kernel.launches += 1
+    return out
 
 
 def attention_flops(N, H, hd, kv_mask):

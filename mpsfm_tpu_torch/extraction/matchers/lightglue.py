@@ -5,8 +5,9 @@ cross-attention over the two keypoint sets, then the matchability-weighted
 dual-softmax assignment, at fixed depth (no early exit or pruning, as in
 the JAX package). Keypoint sets are padded to power-of-two buckets from
 512 up, with masks; pairs of one bucket go through as one batch. Every
-attention call goes through `attention.attention`: the hand-written kernel
-K4 on a CUDA tensor, its plain version on a CPU one. The JAX package's
+attention call goes through `attention.attention`: K4's hand-written
+kernel of the operands' dtype on a CUDA tensor, its plain version on a CPU
+one. The JAX package's
 `qchunk`, `stream` and `pallas` attention branches are TPU tiling and
 transport paths and have no counterpart here.
 
@@ -17,8 +18,9 @@ package's tree (`input_proj`, `Wr`, `self_{l}`, `cross_{l}`, `final_proj`,
 `dtype` is `bfloat16` (the default, as in the JAX package) or `float32`
 (the parity setting). Under bfloat16 the parameters, keypoints and
 descriptors are rounded to bfloat16, as the JAX package's raw_fwd does,
-and every attention call takes bfloat16 q, k, v (K4's bfloat16
-instantiation: float32 inside, a bfloat16 result); the dense layers,
+and every attention call takes bfloat16 q, k, v (K4's tensor-core
+kernel: float32 logits, softmax statistics and accumulator, P rounded to
+bfloat16 for P·V, a bfloat16 result); the dense layers,
 norms and the assignment compute in float32 on those rounded values, as
 XLA does with the JAX package's bfloat16 graph on the CPU (its excess
 precision keeps fused intermediates in float32). The scores are float32.

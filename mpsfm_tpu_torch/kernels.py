@@ -125,7 +125,8 @@ def all_kernels():
     from mpsfm_tpu_torch.ba.cholesky import KERNEL as k1
     from mpsfm_tpu_torch.ba.cholesky import KERNEL_MANY as k1_many
     from mpsfm_tpu_torch.extraction.matchers.attention import KERNEL as k4
+    from mpsfm_tpu_torch.extraction.matchers.attention import KERNEL_TC as k4_tc
     from mpsfm_tpu_torch.integration.bini_diag import KERNEL as k3
     from mpsfm_tpu_torch.integration.bini_fused import KERNEL as k2
 
-    return [k1, k1_many, k2, k3, k4]
+    return [k1, k1_many, k2, k3, k4, k4_tc]

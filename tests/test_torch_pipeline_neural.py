@@ -256,9 +256,14 @@ def test_paper_config_still_raises_naming_dsine(jax_run, tmp_path):
 def test_chip_smoke_neural_phase_on_the_cpu():
     """(d) the phase at its small size, every device the CPU (no launch
     counted): checkpoints written and loaded manifest-free at small widths,
-    the nets card-vs-CPU comparison against itself, K4 checks skipped, the
-    pipeline under the sp-lg_m3dv2-small conf to its end."""
+    the nets card-vs-CPU comparison against itself, K4 checks skipped (no
+    kernel launched; the bfloat16 agreement run compares the plain attention
+    with itself), the pipeline under the sp-lg_m3dv2-small conf to its end."""
     out, launches, k4 = chip_smoke.neural_phase("cpu", {}, "small")
+    ag, k4_launches = out["full"]["bf16_agreement"], out["full"]["k4_launches"]
+    assert ag["share"] == 1.0 and ag["entries"] > 0 and ag["matches_k4"] == ag["matches_plain"]
+    assert all(k4_launches[dt] == {"attention": 0, "attention_tc": 0, "forwards": k4_launches[dt]["forwards"]}
+               and k4_launches[dt]["forwards"] > 0 for dt in ("bfloat16", "float32"))
     assert out["pipeline"]["reached_end"] and out["pipeline"]["stores"] == {"features", "matches", "depth", "pairs"}
     assert out["pipeline"]["pairs_from"] == "netvlad" and out["pipeline"]["depth_equal"]
     assert out["card_vs_cpu"]["ok"] and launches == {} and k4 == {}
