@@ -804,6 +804,24 @@ def check_slice(out, inputs):
 
 # ---- kernel phases ----
 
+# K1's two routes' launch counts (ba/cholesky.route): one kernel of a path, whichever route its K takes
+K1_ROUTES = ("cholesky", "cholesky_grid")
+
+
+def k1_launched():
+    """K1's launches with one right-hand side so far, on either route."""
+    from mpsfm_tpu_torch.ba import cholesky
+
+    return cholesky.KERNEL.launches + cholesky.KERNEL_GRID.launches
+
+
+def unlaunched(launches):
+    """The counted kernels that a path's run launched no time, K1's two
+    routes counted as one (a path's K1 calls take the route of their K)."""
+    k1 = sum(launches.get(name, 0) for name in K1_ROUTES)
+    return [name for name, n in launches.items() if n == 0 and not (name in K1_ROUTES and k1 > 0)]
+
+
 def cuda_ms(fn, reps, warm=True):
     """Mean device time of fn() in ms over reps calls, after one warm call
     (warm=False where the caller has just run fn on the same inputs)."""
@@ -841,13 +859,42 @@ def k1_check(S, b, rel, what):
     return x, err, line
 
 
+def k1_bound_ms(K):
+    """K1's bound at K in ms: (operations, bytes). K³/3 + 2K² FLOP at the
+    float32 peak; S, rhs and x once over the memory rate."""
+    return (K ** 3 / 3 + 2 * K * K) / PEAK_F32 * 1e3, 4 * (K * K + 2 * K) / PEAK_BYTES * 1e3
+
+
+def k1_timed(S, b, plain_reps=2):
+    """K1 at (S, b) on its route, the plain version and the library call
+    (torch.linalg.cholesky + torch.cholesky_solve): ms each, and the bound."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    ms = cuda_ms(lambda: cholesky.cholesky_solve(S, b), 20)
+    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, b), plain_reps)
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(b[:, None], torch.linalg.cholesky(S)), 20)
+    ops_ms, bytes_ms = k1_bound_ms(S.shape[0])
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
+
+
+# K1's routes, timed against each other at these K (K1_CROSSOVER_K) to place ba/cholesky.GRID_MIN_K; its
+# timings at K1_TIMED_K; its run-to-run identity over K1_SAME_RUNS runs at K1_SAME_K
+K1_CROSSOVER_K = (96, 192, 384, 768, 1024)
+K1_TIMED_K = (384, 1024, 2048, 3072)
+K1_SAME_K, K1_SAME_RUNS = (1024, 3072), 10
+
+
 def k1_phase(dev, rng):
     """K1 vs its plain version at K = 6 (one ragged panel), 390 (a ragged
-    last panel), 384 (the bench bundle's 6C) and 1024, on S = A·Aᵀ +
-    shift·K·I for each shift of K1_REL, and with a zeroed row and column
-    (its pivot clamped to 1e-20); times of the kernel, the plain version and
-    the library call at 384 and 1024 (shift 1). Returns the K = 384 figures
-    (the main path's shape)."""
+    last panel), 384 (the bench bundle's 6C), 1024, 1030 (a ragged last panel,
+    K % 4 = 2), 1536, 2048 and 3072, on S = A·Aᵀ + shift·K·I for each shift
+    of K1_REL, each on its route (printed), and with a zeroed row and column
+    (its pivot clamped to 1e-20) on both routes; times of the kernel, the
+    plain version and the library call at K1_TIMED_K (shift 1); both routes
+    timed at K1_CROSSOVER_K; K1_SAME_RUNS runs bit-identical at K1_SAME_K.
+    Returns the K = 384 figures (the main path's shape)."""
     import torch
 
     from mpsfm_tpu_torch.ba import cholesky
@@ -858,7 +905,7 @@ def k1_phase(dev, rng):
         return S, rng.normal(size=K).astype(np.float32)
 
     out = {}
-    for K in (6, 390, 384, 1024):
+    for K in (6, 390, 384, 1024, 1030, 1536, 2048, 3072):
         parts, errs = [], []
         for shift, rel in K1_REL.items():
             S, b = (torch.as_tensor(a, device=dev) for a in spd(K, shift))
@@ -867,35 +914,55 @@ def k1_phase(dev, rng):
             errs.append(err)
             if shift == 1.0:
                 S1, b1 = S, b
-        line = f"K1 cholesky_solve K={K}: " + "; ".join(parts)
-        if K in (384, 1024):
-            ms = cuda_ms(lambda: cholesky.cholesky_solve(S1, b1), 20)
-            plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S1, b1), 2)
-
-            def library():
-                return torch.cholesky_solve(b1[:, None], torch.linalg.cholesky(S1))
-
-            lib_ms = cuda_ms(library, 20)
-            flops = K ** 3 / 3 + 2 * K * K
-            nbytes = 4 * (K * K + 2 * K)
-            bound_ms = max(flops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-            line += (f"; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, "
-                     f"bound {bound_ms:.5f} ms")
+        line = f"K1 cholesky_solve K={K} ({cholesky.route(K)} route): " + "; ".join(parts)
+        if K in K1_TIMED_K:
+            t = dict(k1_timed(S1, b1, plain_reps=1 if K > 1024 else 2), err=max(errs))
+            line += (f"; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, library {t['library_ms']:.4f} ms, "
+                     f"bound {max(t['ops_ms'], t['bytes_ms']):.5f} ms")
             if K == 384:
-                out = dict(err=max(errs), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           ops_ms=flops / PEAK_F32 * 1e3, bytes_ms=nbytes / PEAK_BYTES * 1e3)
+                out = dict(t)
+        if K in K1_SAME_K:
+            xs = [cholesky.cholesky_solve(S1, b1) for _ in range(K1_SAME_RUNS)]
+            same = all(torch.equal(xs[0], x) for x in xs[1:])
+            line += f"; {K1_SAME_RUNS} runs bit-identical: {same}"
+            if not same:
+                raise AssertionError(f"K1 at K={K}: {K1_SAME_RUNS} runs on one input differ")
         print(line)
-    for K, z in ((42, 35), (390, 100)):  # z in the ragged last panel, and in a full one
+    for K, z in ((42, 35), (390, 100), (1030, 1000)):  # z in the ragged last panel, in a full one, on the grid route
         S, b = spd(K, 1.0)
         S[z, :] = 0.0
         S[:, z] = 0.0
         b[z] = 0.0
         x, _, line = k1_check(torch.as_tensor(S, device=dev), torch.as_tensor(b, device=dev), K1_REL[1.0],
-                              f"K1 cholesky_solve K={K}, row and column {z} zeroed")
+                              f"K1 cholesky_solve K={K} ({cholesky.route(K)} route), row and column {z} zeroed")
         if float(x[z]) != 0.0:
             raise AssertionError(f"K1 at a clamped pivot: x[{z}] = {float(x[z])}, not 0")
         print(line + f", x[{z}] = 0")
+    k1_crossover(dev, spd)
     return out
+
+
+def k1_crossover(dev, spd, rounds=3):
+    """Both routes of K1 (cholesky.solve_on_route) timed in turns at
+    K1_CROSSOVER_K on one S (shift 1), `rounds` times block, grid, grid,
+    block: the measurement behind ba/cholesky.GRID_MIN_K (min, median and
+    max of each route's ms)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    parts = []
+    for K in K1_CROSSOVER_K:
+        S, b = (torch.as_tensor(a, device=dev) for a in spd(K, 1.0))
+        ms = {False: [], True: []}
+        for _ in range(rounds):
+            for grid in (False, True, True, False):
+                ms[grid].append(cuda_ms(lambda: cholesky.solve_on_route(S, b, grid), 20))
+        med = {g: float(np.median(v)) for g, v in ms.items()}
+        parts.append(f"K={K} one block {min(ms[False]):.4f} / {med[False]:.4f} / {max(ms[False]):.4f} ms, grid "
+                     f"{min(ms[True]):.4f} / {med[True]:.4f} / {max(ms[True]):.4f} ms")
+    print(f"K1 routes ({rounds} x block, grid, grid, block; min / median / max; GRID_MIN_K = "
+          f"{cholesky.GRID_MIN_K}): " + "; ".join(parts))
 
 
 def kernel_ms_by_name(fn, reps):
@@ -935,14 +1002,15 @@ def f64_gaps(S, B, X):
     solve of S X₆₄ = B."""
     import torch
 
-    S64, B64 = S.double(), B.double()
+    S64, B64, X = S.double(), B.double().reshape(S.shape[0], -1), X.double().reshape(S.shape[0], -1)
     X64 = torch.cholesky_solve(B64, torch.linalg.cholesky(S64))
-    return (float((X.double() - X64).abs().max() / X64.abs().max()),
-            float(torch.linalg.norm(S64 @ X.double() - B64) / torch.linalg.norm(B64)))
+    return (float((X - X64).abs().max() / X64.abs().max()),
+            float(torch.linalg.norm(S64 @ X - B64) / torch.linalg.norm(B64)))
 
 
 def k1_many_check(S, Bm, rel, what, f64=False):
-    """K1 many vs its plain version on (S, Bm): one launch, finite, max |ΔX|
+    """K1 many (K1 on its route where Bm is one right-hand side (K,)) vs
+    its plain version on (S, Bm): one launch, finite, max |ΔX|
     ≤ K1_TOL, max |ΔX| / max |X| ≤ rel and ‖S·X − B‖_F / ‖B‖_F ≤ rel. With
     f64, also the kernel's and the plain version's max relative error and
     residual against the float64 solve, as medians over
@@ -956,10 +1024,14 @@ def k1_many_check(S, Bm, rel, what, f64=False):
 
     from mpsfm_tpu_torch.ba import cholesky
 
-    n0 = cholesky.KERNEL_MANY.launches
+    if Bm.dim() == 2:
+        counter = cholesky.KERNEL_MANY
+    else:  # one right-hand side: K1 on its route
+        counter = cholesky.KERNEL_GRID if cholesky.route(S.shape[0]) == "grid" else cholesky.KERNEL
+    n0 = counter.launches
     X = cholesky.cholesky_solve(S, Bm)
-    if cholesky.KERNEL_MANY.launches != n0 + 1:
-        raise AssertionError("K1 with many right-hand sides was not launched")
+    if counter.launches != n0 + 1:
+        raise AssertionError(f"{counter.name} was not launched")
     ref = cholesky.cholesky_solve_plain(S, Bm)
     err = float((X - ref).abs().max())
     rel_err = err / float(ref.abs().max())
@@ -987,16 +1059,26 @@ def k1_many_check(S, Bm, rel, what, f64=False):
                  f"{K1_ILL_RATIO}x the plain version's; on S alone kernel {gaps[0][0]:.2e}, plain {gaps[0][2]:.2e})")
         ok = ok and e_k <= K1_ILL_RATIO * e_p and r_k <= K1_ILL_RATIO * r_p
     if not ok:
-        raise AssertionError(f"K1 many disagrees with its plain version at K={S.shape[0]}, N={Bm.shape[1]}: {line}")
+        raise AssertionError(f"{'K1 many' if Bm.dim() == 2 else 'K1'} disagrees with its plain version at "
+                             f"K={S.shape[0]}, N={Bm.shape[-1] if Bm.dim() == 2 else 1}: {line}")
     return err, line
+
+
+def k1_many_parts(by_name):
+    """K1 many's device ms by part from kernel_ms_by_name: the factorization
+    (either route's kernel), the packing and the substitution."""
+    parts = {"factorization": ("chol_solve_kernel", "chol_grid_kernel"), "packing": ("chol_pack_kernel",),
+             "substitution": ("chol_subst_kernel",)}
+    return {what: sum(t for n, t in by_name.items() if any(k in n for k in keys)) for what, keys in parts.items()}
 
 
 def k1_many_phase(dev, rng):
     """K1 with many right-hand sides vs its plain version at K = 384, N =
     24 576 (the covariances' solve at the bench bundle: 6C × 3P), K = 390,
     N = 1000 (a ragged last block and column tile), K = 3072, N = 1000 (512
-    cameras, the JAX package's largest dense covariance) and K = 33, N =
-    24 577 (ragged, N no multiple of 4), on S = A·Aᵀ + shift·K·I for each
+    cameras, the JAX package's largest dense covariance), K = 33, N = 24 577
+    (ragged, N no multiple of 4) and K = 1030, N = 65 (the grid route's
+    factorization at a ragged K), on S = A·Aᵀ + shift·K·I for each
     shift of K1_REL: max |ΔX| ≤ K1_TOL, max |ΔX| / max |X| and ‖S·X − B‖_F /
     ‖B‖_F within the shift's bound. Times of the kernel, the plain version
     and the library call at the main shape, and of the kernel's three
@@ -1007,7 +1089,7 @@ def k1_many_phase(dev, rng):
     from mpsfm_tpu_torch.ba import cholesky
 
     out = {}
-    for K, N in ((384, 24576), (390, 1000), (3072, 1000), (33, 24577)):
+    for K, N in ((384, 24576), (390, 1000), (3072, 1000), (33, 24577), (1030, 65)):
         parts, errs = [], []
         for shift, rel in K1_REL.items():
             A = rng.normal(size=(K, K)).astype(np.float32)
@@ -1033,9 +1115,7 @@ def k1_many_phase(dev, rng):
             L1 = torch.linalg.cholesky(S1)
             lib_subst = cuda_ms(lambda: torch.cholesky_solve(B1, L1), 10)
             subst_bound = 2.0 * K * K * N / PEAK_F32 * 1e3
-            parts = {"factorization": "chol_solve_kernel", "packing": "chol_pack_kernel",
-                     "substitution": "chol_subst_kernel"}
-            got = {what: sum(t for n, t in by_name.items() if key in n) for what, key in parts.items()}
+            got = k1_many_parts(by_name)
             if not all(got.values()):
                 raise AssertionError(f"K1 many's kernels not all seen by the profiler: {sorted(by_name)}")
             print(f"K1 many K={K}, N={N} by kernel (torch.profiler, 10 calls): "
@@ -1068,8 +1148,7 @@ def k1_many_covariance_shape(dev, rng, K=6 * 512, N=3 * 131072):
     plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, Bm), 1)
     lib_ms = cuda_ms(lambda: torch.cholesky_solve(Bm, torch.linalg.cholesky(S)), 3)
     by_name = kernel_ms_by_name(lambda: cholesky.cholesky_solve(S, Bm), 2)
-    parts = {"factorization": "chol_solve_kernel", "packing": "chol_pack_kernel", "substitution": "chol_subst_kernel"}
-    got = {what: sum(t for n, t in by_name.items() if key in n) for what, key in parts.items()}
+    got = k1_many_parts(by_name)
     if not all(got.values()):
         raise AssertionError(f"K1 many's kernels not all seen by the profiler: {sorted(by_name)}")
     flops, nbytes = K ** 3 / 3 + 2.0 * K * K * N, 4.0 * (K * K + 2 * K * N)
@@ -2291,9 +2370,8 @@ def scene_refinement_phase(dev, bundle, counted, size=FULL):
         print(f"scene refinement K3 at int_covs_bundle_batched's shapes ({args[2].shape[0]} lanes x {args[2].shape[1]} "
               f"keypoints of {'x'.join(map(str, args[1].minv.shape[1:]))}, {n_rhs} right-hand sides, {args[4]} "
               f"iterations): {cuda_ms(lambda: bini_diag.deflated_pcg(*args), 2):.3f} ms")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched in the scene refinement phase")
+    if unlaunched(launches):
+        raise AssertionError(f"kernels {unlaunched(launches)} were not launched in the scene refinement phase")
     return times, launches
 
 
@@ -2773,9 +2851,8 @@ def mapping_phase(dev, counted):
     print("mapping registrations (image, s wall, ok): "
           + ", ".join(f"({i}, {s:.3f}, {'ok' if g else 'failed'})" for i, s, g in walls))
     print("mapping phase timers (s wall x calls):\n" + TIMERS.summary())
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched in the mapping phase")
+    if unlaunched(launches):
+        raise AssertionError(f"kernels {unlaunched(launches)} were not launched in the mapping phase")
     check_path_kernels("mapping phase", kept, rec, dev)
     return out, launches
 
@@ -3110,9 +3187,8 @@ def pipeline_phase(dev, counted):
     print("pipeline phase timers (s wall x calls):\n" + TIMERS.summary())
     if any(v != {"cuda"} for v in seen.values()):
         raise AssertionError(f"pipeline stages off the card: {seen}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched in the pipeline phase")
+    if unlaunched(launches):
+        raise AssertionError(f"kernels {unlaunched(launches)} were not launched in the pipeline phase")
     if not (ok and out["registered"] >= min_reg and ate < ate_bound and out["points"] >= min_points):
         raise AssertionError(f"pipeline: {out} (bounds: >= {min_reg} registered, ATE < {ate_bound}, >= {min_points} "
                              "points)")
@@ -3344,9 +3420,8 @@ def dense_full_run(dev, counted, size):
     print("dense modes (a) phase timers (s wall x calls):\n" + TIMERS.summary())
     if any(v != {dev.type} for v in seen.values()):
         raise AssertionError(f"dense modes (a): stages off the device: {seen}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched in the dense modes phase")
+    if unlaunched(launches):
+        raise AssertionError(f"kernels {unlaunched(launches)} were not launched in the dense modes phase")
     if not (ok and out["registered"] >= min_reg and ate < ate_bound and out["points"] >= min_points):
         raise AssertionError(f"dense modes (a): {out} (bounds: >= {min_reg} registered, ATE < {ate_bound}, >= "
                              f"{min_points} points)")
@@ -4167,7 +4242,7 @@ def neural_pipeline(dev, counted, size, paths, data_dir):
         problems.append(f"K4 launches {launches.get('attention_tc')} (tensor cores) and {launches.get('attention')} "
                         f"(float32) for {forwards[0]} bfloat16 forwards")
     if want == "cuda" and (not any(per_pair) or out["registered"] < NEURAL_MIN_REG or out["points"] == 0
-                           or not launches.get("cholesky") or not launches.get("bini")):
+                           or unlaunched({k: launches.get(k, 0) for k in (*K1_ROUTES, "bini")})):
         problems.append(f"the mapper on the neural matches: registered {out['registered']}, {out['points']} "
                         f"points, launches {launches}")
     if problems:
@@ -4247,6 +4322,8 @@ SPARSE = dict(n_cams=512, n_pts=131072, track_len=6)
 # 128 × 65 536 (Pb·Cb = 8.4 M, still above the layout): at 256 and 512 cameras the point covariances'
 # reduced camera system has modes below float32's resolution of its entries (sparse_covariance_gap)
 SPARSE_ROUTE = dict(n_cams=128, n_pts=65536, track_len=6, B=8, H=290, W=387)
+# the dense-Schur route at 192 cameras (K = 6C = 1152, Pb·Cb = 1.6 M, under DENSE_MAX): K1's grid route in situ
+SPARSE_GRID_ROUTE = dict(n_cams=192, n_pts=8192)
 # tests/test_ba.py::test_block_schur_full_solve_parity's bundle, for the card against the CPU
 SPARSE_SMALL = dict(n_cams=16, n_pts=1024, track_len=4, seed=1)
 # the start of both: rotation (rad) and translation noise of the poses, and the points' noise (each
@@ -4462,15 +4539,17 @@ def sparse_errors(rec, sc):
                 pts=float(np.median(np.linalg.norm(rec.xyz[pids] - sc.pts[pids], axis=1))))
 
 
-def sparse_dense_schur_route(dev, n_cams=FULL["n_cams"], n_pts=FULL["n_pts"], iters=LM_ITERS):
-    """solve_ba on the bench bundle with its per-(point, camera) tables
-    (the dense-Schur route: K1 once per LM iteration) on the card,
-    rel_tol 0, against the port's solve_ba_dense on the same bundle at
-    tests/test_ba.py::test_dense_ba_matches_sparse's bounds, its points
-    closer to the truth (every camera sees every point); K1 held to its
+def sparse_dense_schur_route(dev, n_cams=FULL["n_cams"], n_pts=FULL["n_pts"], iters=LM_ITERS, against_dense=True):
+    """solve_ba on the bundle of n_cams × n_pts with its per-(point, camera)
+    tables (the dense-Schur route: K1 once per LM iteration, on its route at
+    K = 6C) on the card, rel_tol 0: the cost down and the points closer to
+    the truth (every camera sees every point), and with against_dense, the
+    port's solve_ba_dense on the same bundle at
+    tests/test_ba.py::test_dense_ba_matches_sparse's bounds; K1 held to its
     plain version on the reduced system with the largest right-hand side
-    (last_call; the first step's: the last ones are near 0) and timed.
-    Returns the numbers printed."""
+    (last_call; the first step's: the last ones are near 0; k1_check_in_situ)
+    and timed beside the library call. Returns the numbers printed, K1's
+    launches by route ("launches") and its row of the kernels line ("k1")."""
     import torch
 
     from mpsfm_tpu_torch import convert
@@ -4480,34 +4559,61 @@ def sparse_dense_schur_route(dev, n_cams=FULL["n_cams"], n_pts=FULL["n_pts"], it
     truth = bench_points(n_pts)
     data = convert.ba_data(ba_arrays(b), device=dev)
     solver.solve_ba(data, max_iters=2, rel_tol=0.0)  # warm-up
-    n0 = cholesky.KERNEL.launches
+    routes = {"cholesky": cholesky.KERNEL, "cholesky_grid": cholesky.KERNEL_GRID}
+    n0 = {name: k.launches for name, k in routes.items()}
     with last_call(solver, "cholesky_solve", lambda a, out: float(a[1].abs().max())) as kept:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         q, t, x, info = solver.solve_ba(data, max_iters=iters, rel_tol=0.0)
         cost = float(info["cost"])
         wall = time.perf_counter() - t0
-    launches = cholesky.KERNEL.launches - n0
-    _, td, xd, info_d = dense.solve_ba_dense(dense.densify(b, n_cams, n_pts, dev), max_iters=iters, rel_tol=0.0)
-    gaps = dict(t=float((t - td).abs().max()), xyz=float((x - xd).abs().max()),
-                cost=abs(cost - float(info_d["cost"])) / float(info_d["cost"]))
+    launches = {name: k.launches - n0[name] for name, k in routes.items()}
+    S, rhs = kept["args"]
+    K = S.shape[0]
+    own = "cholesky_grid" if cholesky.route(K) == "grid" else "cholesky"
     pts_err = [float(np.median(np.linalg.norm(np.asarray(a, np.float64) - truth, axis=1))) for a in (b.xyz, x.cpu())]
     line = (f"sparse BA, dense-Schur route ({n_cams} x {n_pts}, with per-(point, camera) tables): solve_ba "
-            f"{iters} LM iterations in {wall:.4f} s wall, {iters / wall:.3f} LM iterations/s, {launches} K1 launches; "
-            f"cost {float(info['cost0']):.6g} -> {cost:.6g} ({info['accepted']} accepted); against solve_ba_dense: "
-            f"max|dt| {gaps['t']:.3e} (bound 5e-3), max|dxyz| {gaps['xyz']:.3e} (bound 2e-2), cost {gaps['cost']:.3e} "
-            f"relative (bound 5e-2); the points' median error to the truth {pts_err[0]:.4g} -> {pts_err[1]:.4g}")
+            f"{iters} LM iterations in {wall:.4f} s wall, {iters / wall:.3f} LM iterations/s, K1 launches {launches} "
+            f"(K={K}, {cholesky.route(K)} route); cost {float(info['cost0']):.6g} -> {cost:.6g} ({info['accepted']} "
+            f"accepted)")
+    ok = cost < float(info["cost0"]) and launches[own] == iters and sum(launches.values()) == iters
+    gaps = {}
+    if against_dense:
+        _, td, xd, info_d = dense.solve_ba_dense(dense.densify(b, n_cams, n_pts, dev), max_iters=iters, rel_tol=0.0)
+        gaps = dict(t=float((t - td).abs().max()), xyz=float((x - xd).abs().max()),
+                    cost=abs(cost - float(info_d["cost"])) / float(info_d["cost"]))
+        line += (f"; against solve_ba_dense: max|dt| {gaps['t']:.3e} (bound 5e-3), max|dxyz| {gaps['xyz']:.3e} "
+                 f"(bound 2e-2), cost {gaps['cost']:.3e} relative (bound 5e-2)")
+        ok = ok and gaps["t"] <= 5e-3 and gaps["xyz"] <= 2e-2 and gaps["cost"] <= 0.05
+    line += f"; the points' median error to the truth {pts_err[0]:.4g} -> {pts_err[1]:.4g}"
     print(line)
-    if not (gaps["t"] <= 5e-3 and gaps["xyz"] <= 2e-2 and gaps["cost"] <= 0.05 and cost < float(info["cost0"])
-            and launches == iters and pts_err[1] < pts_err[0]):
+    if not (ok and pts_err[1] < pts_err[0]):
         raise AssertionError(line)
-    S, rhs = kept["args"]
-    _, _, line = k1_check(S, rhs, K1_REL[0.01], f"K1 at solve_ba's reduced system with the largest right-hand side "
-                          f"(K={S.shape[0]}, condition number {float(torch.linalg.cond(S.double())):.3g})")
-    ms = cuda_ms(lambda: cholesky.cholesky_solve(S, rhs), 20)
-    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, rhs), 2)
-    print(f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms")
-    return dict(lm_per_s=iters / wall, launches=launches, k1_ms=ms, k1_plain_ms=plain_ms, **gaps)
+    err, line = k1_check_in_situ(S, rhs, f"K1 at solve_ba's reduced system with the largest right-hand side (K={K}, "
+                                 f"{cholesky.route(K)} route)")
+    k1 = dict(k1_timed(S, rhs), err=err)
+    print(f"{line}; kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.3f} ms, library {k1['library_ms']:.4f} ms, "
+          f"bound {max(k1['ops_ms'], k1['bytes_ms']):.5f} ms; {launches[own]} launches x {k1['ms']:.4f} ms = "
+          f"{launches[own] * k1['ms']:.3f} ms of K1 in {wall * 1e3:.1f} ms of solve_ba")
+    return dict(lm_per_s=iters / wall, launches=launches, k1=k1, k1_ms=k1["ms"], k1_plain_ms=k1["plain_ms"], **gaps)
+
+
+def k1_check_in_situ(S, rhs, what):
+    """K1 on a BA's reduced system: held to its plain version by k1_check at
+    K1_REL[0.01], unless the plain version itself lies farther than that from
+    the float64 solve (its condition number printed); then by the float64
+    rule of k1_many_check (K1_ILL_REL's note). Returns (max |Δx|, a line)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    cond = float(torch.linalg.cond(S.double()))
+    rel, res = f64_gaps(S, rhs, cholesky.cholesky_solve_plain(S, rhs))
+    what = f"{what}, condition number {cond:.3g}, plain version {rel:.2e} relative from the float64 solve"
+    if rel <= K1_REL[0.01] and res <= K1_REL[0.01]:
+        _, err, line = k1_check(S, rhs, K1_REL[0.01], what)
+        return err, line
+    return k1_many_check(S, rhs, K1_ILL_REL, what, f64=True)
 
 
 def check_sparse_refinement(out, kept_solve):
@@ -4606,9 +4712,8 @@ def sparse_large_route(dev, counted, size=SPARSE_ROUTE):
           f"{int(data.bs.uni_slots.shape[1])}")
     for name, sec in times.items():
         print(f"sparse BA {name}: {sec:.4f} s wall")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched in the sparse BA large route")
+    if unlaunched(launches):
+        raise AssertionError(f"kernels {unlaunched(launches)} were not launched in the sparse BA large route")
     res = dict(wall=wall, peak_gib=peak, launches=launches, before=before, after=after, times=times)
     if dev.type == "cuda":
         res["kernels"] = check_path_kernels("sparse BA large route", kept, rec, dev, pris=pris,
@@ -4782,12 +4887,19 @@ def sparse_ba_phase(dev, counted):
     the bench bundle (sparse_dense_schur_route), the refinement steps above
     the dense layout (sparse_large_route), the full-width BA
     (sparse_full_width), and the card against the CPU at a small size
-    (sparse_card_vs_cpu). Returns (numbers, {route: launches})."""
+    (sparse_card_vs_cpu); the dense-Schur route again at SPARSE_GRID_ROUTE,
+    where K1 takes its grid route in situ. Returns (numbers, {route:
+    launches})."""
     out = {"dense_schur": sparse_dense_schur_route(dev)}
+    # the dense-Schur route at SPARSE_GRID_ROUTE: K1 in situ on its grid route (K = 6C above GRID_MIN_K)
+    t = time.perf_counter()
+    out["dense_schur_grid"] = sparse_dense_schur_route(dev, **SPARSE_GRID_ROUTE, against_dense=False)
+    print(f"sparse BA, dense-Schur route at {SPARSE_GRID_ROUTE}: {time.perf_counter() - t:.1f} s wall with its checks")
     out["large"], large = sparse_large_route(dev, counted)
     out["full"], full = sparse_full_width(dev, counted)
     out["small"] = sparse_card_vs_cpu(dev)
-    return out, {"large route": large, "full width": full}
+    return out, {"dense-Schur route (grid)": out["dense_schur_grid"]["launches"], "large route": large,
+                 "full width": full}
 
 
 # ---- the distributed BA (slice 9): parallel/ over torch.distributed, in worker processes ----
@@ -4811,21 +4923,12 @@ def k1_row(S, rhs, what):
     """K1 held to its plain version on (S, rhs) (k1_check, K1_REL[0.01]), timed
     beside the plain version and the library call, with its bound: a row of the
     kernels line, and the line to print ("line")."""
-    import torch
-
-    from mpsfm_tpu_torch.ba import cholesky
-
     _, err, line = k1_check(S, rhs, K1_REL[0.01], what)
-    K = S.shape[0]
     if not S.is_cuda:  # a rehearsal on the CPU: the plain version against itself, no time
         return dict(err=err, line=line)
-    ms = cuda_ms(lambda: cholesky.cholesky_solve(S, rhs), 20)
-    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(S, rhs), 2)
-    lib_ms = cuda_ms(lambda: torch.cholesky_solve(rhs[:, None], torch.linalg.cholesky(S)), 20)
-    flops, nbytes = K ** 3 / 3 + 2 * K * K, 4 * (K * K + 2 * K)
-    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops_ms=flops / PEAK_F32 * 1e3,
-                bytes_ms=nbytes / PEAK_BYTES * 1e3,
-                line=f"{line}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms")
+    t = k1_timed(S, rhs)
+    return dict(t, err=err, line=f"{line}; kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, library "
+                               f"{t['library_ms']:.4f} ms")
 
 
 def mapper_decisions(rec, ok, mapper):
@@ -4874,20 +4977,19 @@ def dist_solve(parts, dev, iters, warm=True):
     """solve_ba_block_sharded over the default group at rel_tol 0, timed
     (after a one-iteration warm-up): (quat, t, the gathered point blocks,
     info with K1's launches in the timed solve, wall s), as numpy."""
-    from mpsfm_tpu_torch.ba import cholesky
     from mpsfm_tpu_torch.parallel import dist_ba
 
     group = dist_ba.make_group()
     if warm:
         dist_ba.solve_ba_block_sharded(parts, group, max_iters=1, rel_tol=0.0, device=dev)
-    n0 = cholesky.KERNEL.launches
+    n0 = k1_launched()
     sync(dev)
     t = time.perf_counter()
     q, tt, x, info = dist_ba.solve_ba_block_sharded(parts, group, max_iters=iters, rel_tol=0.0, device=dev)
     info["cost"], info["cost0"] = float(info["cost"]), float(info["cost0"])
     wall = time.perf_counter() - t
     info["cost_history"] = info["cost_history"].cpu().numpy()
-    info["k1_launches"] = cholesky.KERNEL.launches - n0
+    info["k1_launches"] = k1_launched() - n0
     return q.cpu().numpy(), tt.cpu().numpy(), dist_ba.all_gather_points(x, group).cpu().numpy(), info, wall
 
 
@@ -5233,8 +5335,8 @@ def main():
     run_slice(inputs, dev)  # warm-up: the first call of each torch op loads its CUDA module
     print(f"main path warm-up: {time.perf_counter() - t:.3f} s wall")
     phases = {}
-    counted = {"cholesky": cholesky.KERNEL, "cholesky_many": cholesky.KERNEL_MANY, "bini": bini_fused.KERNEL,
-               "bini_diag": bini_diag.KERNEL}
+    counted = {"cholesky": cholesky.KERNEL, "cholesky_grid": cholesky.KERNEL_GRID, "cholesky_many": cholesky.KERNEL_MANY,
+               "bini": bini_fused.KERNEL, "bini_diag": bini_diag.KERNEL}
     for k in counted.values():
         k.launches = 0
     t = time.perf_counter()
@@ -5251,9 +5353,8 @@ def main():
           f"variance {quality['var_ratio']:.4f}; launches {launches}")
     print(f"main path depth consistency: {phases['dc'] * 1e3:.2f} ms wall for {len(out['dc_scores'])} queries x "
           f"{out['dc_counts'].shape[1]} refs; scores {[round(x, 4) for x in out['dc_scores']]}; {quality['dc_line']}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    if unlaunched(launches):
+        raise AssertionError(f"kernels {unlaunched(launches)} were not launched on the main path")
     if launches["bini_diag"] != 1:  # all 8 × 2048 right-hand sides in one launch
         raise AssertionError(f"K3 made {launches['bini_diag']} launches on the main path, not 1")
 
@@ -5272,15 +5373,20 @@ def main():
     neural, neural_launches, k4 = neural_phase(dev, {**counted, "attention": attention.KERNEL,
                                                      "attention_tc": attention.KERNEL_TC})
     neural_k4_f32_launches = neural["full"]["k4_launches"]["float32"]["attention"]
-    _, sparse_launches = sparse_ba_phase(dev, counted)
+    sparse, sparse_launches = sparse_ba_phase(dev, counted)
     dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
         profile_slice(inputs, dev)
 
     rows = []
+    main_k1 = "cholesky_grid" if cholesky.route(6 * FULL["n_cams"]) == "grid" else "cholesky"  # the main path's K
+    grid = sparse["dense_schur_grid"]
     for name, route_src, replaces, k, n in (
-        ("cholesky_solve", "mpsfm_tpu_torch/csrc/cholesky.cu", "mpsfm_tpu/ba/pallas_cholesky.py:25",
-         k1, launches["cholesky"]),
+        (f"cholesky_solve ({main_k1})", "mpsfm_tpu_torch/csrc/cholesky.cu", "mpsfm_tpu/ba/pallas_cholesky.py:25",
+         k1, launches[main_k1]),
+        # K1's grid route (chol_grid_kernel) in situ: the dense-Schur route at SPARSE_GRID_ROUTE, its launches and K
+        ("cholesky_solve (cholesky_grid, dense-Schur route at 192 cameras)", "mpsfm_tpu_torch/csrc/cholesky.cu",
+         "mpsfm_tpu/ba/pallas_cholesky.py:25", grid["k1"], grid["launches"]["cholesky_grid"]),
         # K1's factorization with many right-hand sides: on the JAX path XLA's cho_factor + cho_solve
         ("cholesky_solve_many", "mpsfm_tpu_torch/csrc/cholesky_many.cu", "mpsfm_tpu/ba/covariance.py:91",
          k1_many, launches["cholesky_many"]),

@@ -8,30 +8,66 @@ Cholesky with 32-wide panels + blocked triangular solves, one launch,
 sm_90a; the dense BA's reduced solve) and a (K,N) rhs csrc/cholesky_many.cu
 (the same factorization, L's 32×32 tiles packed with each diagonal block
 inverted, then register-tiled blocked substitutions over tiles of 64
-columns; the point covariances' reduced solve). On a CPU tensor either runs
-`cholesky_solve_plain`, the same blocked order in torch. There is no
-fallback between the two: a CUDA tensor reaches a kernel or the call
-raises. KERNEL.launches and KERNEL_MANY.launches count the calls of each.
+columns; the point covariances' reduced solve). The factorization takes
+one of two routes by K (`route`): below GRID_MIN_K one block of 256
+threads (`chol_solve_kernel`), at and above it one cooperative launch
+over every SM (`chol_grid_kernel`: panels split by rows over the CTAs,
+the trailing update in 64×64 tiles dealt to them, a grid barrier after
+each). Both factor with the same arithmetic in the same order (the same
+L bit for bit); the grid route's backward substitution sums in another
+order. On a CPU tensor
+either runs `cholesky_solve_plain`, the same blocked order in torch. There
+is no fallback: a CUDA tensor reaches its route's kernel or the call
+raises, and a refused cooperative launch is not retried on one block.
+KERNEL.launches, KERNEL_GRID.launches and KERNEL_MANY.launches count the
+launches of the one-block solve, the grid solve and the many-rhs solve.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mpsfm_tpu_torch.kernels import I, P, Kernel, stream_ptr
+from mpsfm_tpu_torch.kernels import I, P, Kernel, Launches, stream_ptr
 
 MAX_K = 4096  # CHOL_MAX_K of csrc/cholesky.cu (shared-memory vector)
 NB = 32  # panel width (CHOL_NB of csrc/cholesky.cu)
+# The crossover of the two routes: the smallest K that takes the grid route. chip_smoke.k1_crossover in two
+# calls on H100 80GB HBM3 at 700 W, min-max of 6 turns a route, one block / grid, in ms: K = 96 0.0497-0.0513 /
+# 0.0402-0.0408 and 0.0496-0.0510 / 0.0382-0.0641 (host-bound: the grid's turns spread across the one
+# block's); 192 0.1025-0.1049 / 0.0711-0.0721 and 0.1023-0.1035 / 0.0677-0.0695; 384 0.287-0.290 / 0.134-0.139;
+# 1024 2.89-2.91 / 0.348-0.370. From 192 the grid route won every turn of both calls; below it (K = 48 in the
+# pipeline and the dense modes, 96 in the mapping) one block.
+GRID_MIN_K = 192
 
-KERNEL = Kernel("cholesky", "cholesky.cu", {"chol_solve_f32": [P, P, P, P, I, P]})
-KERNEL_MANY = Kernel("cholesky_many", "cholesky_many.cu", {"chol_solve_many_f32": [P, P, P, P, I, I, P]})
+KERNEL = Kernel("cholesky", "cholesky.cu", {"chol_solve_f32": [P, P, P, P, I, P],
+                                            "chol_solve_grid_f32": [P, P, P, P, P, I, P]})
+KERNEL_GRID = Launches("cholesky_grid")  # chol_grid_kernel, in KERNEL's library
+KERNEL_MANY = Kernel("cholesky_many", "cholesky_many.cu", {"chol_solve_many_f32": [P, P, P, P, I, I, P, P]})
 
 
-def many_work_floats(K: int) -> int:
-    """Floats of csrc/cholesky_many.cu's workspace at K: the packed 32×32
-    tiles of L's lower triangle in two layouts (F, G), then U = Lᵀ (K×K)."""
+def route(K: int) -> str:
+    """The factorization's route at K: "grid" (the cooperative launch over
+    every SM) from GRID_MIN_K on, else "block" (one block)."""
+    return "grid" if K >= GRID_MIN_K else "block"
+
+
+def grid_ld(K: int) -> int:
+    """The grid route's row stride of U: K rounded up to 4 floats (grid_ld of csrc/cholesky.cu)."""
+    return -(-K // 4) * 4
+
+
+def work_floats(K: int, many: bool, grid: bool) -> int:
+    """Floats of the kernels' workspace at K. One rhs: U = Lᵀ (K×K), or on
+    the grid route U with rows grid_ld(K) apart, then y and 1/L[j][j]. Many
+    right-hand sides: the packed 32×32 tiles of L's lower triangle in two
+    layouts (F, G), then U (K×K), or on the grid route U as above and
+    1/L[j][j]."""
+    ld = grid_ld(K)
+    u = (K * ld + (1 if many else 2) * ld) if grid else K * K
+    if not many:
+        return u
     nblk = -(-K // NB)
-    return 2 * nblk * (nblk + 1) // 2 * NB * NB + K * K
+    return 2 * nblk * (nblk + 1) // 2 * NB * NB + u
 
 
 def _solve_lower(L: torch.Tensor, b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
@@ -80,6 +116,32 @@ def cholesky_solve_plain(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def solve_on_route(S: torch.Tensor, rhs: torch.Tensor, grid: bool) -> torch.Tensor:
+    """The kernels on CUDA tensors S (K,K) and rhs (K,) or (K,N), both
+    contiguous float32, with the factorization on the given route:
+    `cholesky_solve` passes route(K); chip_smoke.py times both routes with it
+    to place GRID_MIN_K."""
+    K = S.shape[0]
+    many = rhs.dim() == 2
+    work = torch.empty(work_floats(K, many, grid), dtype=S.dtype, device=S.device)
+    # the grid barrier's counter, then the backward substitution's 64-bit hand-off words (one per row of x)
+    bar = torch.zeros(2 + 64 * -(-K // NB), dtype=torch.int32, device=S.device) if grid else None
+    x = torch.empty_like(rhs)
+    if many:
+        if rhs.shape[1] > 0:
+            KERNEL_MANY.call("chol_solve_many_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(),
+                             K, rhs.shape[1], bar.data_ptr() if grid else None, stream_ptr(S))
+            KERNEL_MANY.launches += 1
+    elif grid:
+        KERNEL.call("chol_solve_grid_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), bar.data_ptr(),
+                    x.data_ptr(), K, stream_ptr(S))
+        KERNEL_GRID.launches += 1
+    else:
+        KERNEL.call("chol_solve_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(), K, stream_ptr(S))
+        KERNEL.launches += 1
+    return x
+
+
 def cholesky_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """Solve S x = rhs for SPD S (K,K) f32; rhs (K,) or (K,N) f32."""
     if S.dim() != 2 or S.shape[0] != S.shape[1] or rhs.dim() not in (1, 2) or rhs.shape[0] != S.shape[0]:
@@ -95,15 +157,4 @@ def cholesky_solve(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     K = S.shape[0]
     if K > MAX_K:
         raise ValueError(f"cholesky_solve: K={K} exceeds the kernel's {MAX_K}")
-    S = S.contiguous()
-    rhs = rhs.contiguous()
-    work = torch.empty(K * K if rhs.dim() == 1 else many_work_floats(K), dtype=S.dtype, device=S.device)
-    x = torch.empty_like(rhs)
-    if rhs.dim() == 1:
-        KERNEL.call("chol_solve_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(), K, stream_ptr(S))
-        KERNEL.launches += 1
-    elif rhs.shape[1] > 0:
-        KERNEL_MANY.call("chol_solve_many_f32", S.data_ptr(), rhs.data_ptr(), work.data_ptr(), x.data_ptr(),
-                         K, rhs.shape[1], stream_ptr(S))
-        KERNEL_MANY.launches += 1
-    return x
+    return solve_on_route(S.contiguous(), rhs.contiguous(), route(K) == "grid")

@@ -5,9 +5,11 @@
 // package leaves to XLA; it is K1's consumer with many right-hand sides (the
 // TPU kernel K1 is _chol_solve_kernel, mpsfm_tpu/ba/pallas_cholesky.py:25).
 // Three launches on the caller's stream:
-//   1. chol_solve_kernel<false> (cholesky.cu, included below): K1's blocked
-//      factorization in one block, into the workspace's U = L^T
-//      (U[k K + i] = L[i][k], k <= i);
+//   1. K1's blocked factorization (cholesky.cu, included below) on the route
+//      the wrapper picks by K: chol_solve_kernel<false> in one block, or
+//      chol_grid_kernel<false> over the whole card, into the workspace's
+//      U = L^T (U[k ld + i] = L[i][k], k <= i; ld = K on one block,
+//      grid_ld(K) on the grid);
 //   2. chol_pack_kernel: L's 32 x 32 tiles of the lower triangle, one block
 //      each, copied into the two layouts the substitution stages (F for the
 //      forward, G = its transpose for the backward), zero-padded where K is
@@ -36,8 +38,9 @@
 // block. On an H100 SXM at 700 W (k1_many_probe.py, K = 384, N = 24 576) the substitution
 // takes ~0.26 ms at TM = 4 (2 loads per 16 FMA) and ~0.35 ms at TM = 2 (2 per
 // 8), whatever the warp layout WX (3 or 2 shared-memory wavefronts a warp
-// per k at TM = 2 made no difference). The factorization is K1's single
-// block (~0.25 ms at K = 384). chip_smoke.py times the three kernels apart.
+// per k at TM = 2 made no difference). The factorization is K1's (cholesky.cu:
+// one block below GRID_MIN_K, ~0.25 ms at K = 384 that way; the grid from it
+// on). chip_smoke.py times the three kernels apart.
 
 #include <stdint.h>
 
@@ -55,23 +58,6 @@ static_assert(SUB_TM == 2 || SUB_TM == 4, "a thread's rows are one 8- or 16-byte
 static_assert((SUB_NT / 4) % SUB_WX == 0 && (CHOL_NB / SUB_TM) % (32 / SUB_WX) == 0, "warps must tile the block");
 static_assert(SUB_TILE % (4 * SUB_THREADS) == 0 && SUB_CHUNK % (4 * SUB_THREADS) == 0, "16-byte staging");
 
-// cp.async of kBytes (16: through L2 only; 4: through L1) from global to
-// shared memory, zeros where !in (src is then not read)
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool in) {
-    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-    if (kBytes == 16)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d), "l"(src), "r"(in ? 16 : 0) : "memory");
-    else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(d), "l"(src), "r"(in ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
-
-// wait until at most kPending of this thread's committed groups are in flight
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;" ::"n"(kPending) : "memory"); }
-
 // Tile slot t of the lower triangle (c, k), k <= c, is t = c (c + 1) / 2 + k (tri_tile):
 //   F[t][k'][i] = L[32c + i][32k + k'] for k < c,  F[t(c, c)][k'][i] = Linv_c[i][k'],
 //   G[t][k'][i] = F[t][i][k'],
@@ -79,15 +65,15 @@ __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_gr
 // L[32c+i][32k+k']) and the backward's chunk k > b of block b is G[t(k, b)]
 // (A[i][k'] = L^T[32b+i][32k+k']); rows and columns at or beyond K are 0.
 __global__ void __launch_bounds__(PACK_THREADS)
-chol_pack_kernel(const float* __restrict__ U, float* __restrict__ F, float* __restrict__ G, int K) {
+chol_pack_kernel(const float* __restrict__ U, float* __restrict__ F, float* __restrict__ G, int K, int ld) {
     __shared__ float T[CHOL_NB][TB_STRIDE];  // T[k'][i] = L[32c + i][32k + k']
     __shared__ float Xi[CHOL_NB][TB_STRIDE]; // diagonal tiles: Xi[k'][i] = Linv[i][k']
     int c, k;
     tri_tile(blockIdx.x, c, k);
     const int r0 = c * CHOL_NB, k0 = k * CHOL_NB, nb = min(CHOL_NB, K - r0);
-    for (int e = threadIdx.x; e < SUB_TILE; e += PACK_THREADS) {  // U[(k0+k') K + r0+i]: coalesced in i
+    for (int e = threadIdx.x; e < SUB_TILE; e += PACK_THREADS) {  // U[(k0+k') ld + r0+i]: coalesced in i
         const int kp = e / CHOL_NB, i = e % CHOL_NB;
-        T[kp][i] = (r0 + i < K && k0 + kp <= r0 + i) ? U[(size_t)(k0 + kp) * K + r0 + i] : 0.f;
+        T[kp][i] = (r0 + i < K && k0 + kp <= r0 + i) ? U[(size_t)(k0 + kp) * ld + r0 + i] : 0.f;
     }
     __syncthreads();
     const bool diag = c == k;
@@ -271,22 +257,30 @@ static size_t many_tiles(int K) {
 }
 
 // S (K,K) row-major f32 (its lower triangle is read), B (K,N) row-major,
-// work (2 T + K^2 floats, T = 1024 nblk (nblk + 1) / 2, nblk = ceil(K / 32):
-// F, G, then U; 16-byte aligned), X (K,N) out. Returns cudaGetLastError()
-// after the launches.
+// work (16-byte aligned: F and G, 2 T floats, T = 1024 nblk (nblk + 1) / 2,
+// nblk = ceil(K / 32), then U: K^2 floats for the one-block factorization, or
+// for the grid route's (bar: its zeroed barrier counter, not null) K ld + ld, ld =
+// grid_ld(K): U with rows ld floats apart, then 1 / L[j][j]), X (K,N) out.
+// Returns cudaGetLastError() after the launches.
 extern "C" int chol_solve_many_f32(const float* S, const float* B, float* work, float* X, int K, int N,
-                                   void* stream) {
+                                   unsigned* bar, void* stream) {
     if (K < 1 || K > CHOL_MAX_K || N < 1 || (uintptr_t)work % 16) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     float *F = work, *G = work + many_tiles(K), *U = work + 2 * many_tiles(K);
-    cudaError_t err = cudaFuncSetAttribute(chol_solve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)((SM_FIXED + CHOL_MAX_K) * sizeof(float)));
+    const int ld = bar ? grid_ld(K) : K;
+    cudaError_t err;
+    if (bar) {
+        err = launch_grid<false>(GridArgs{S, nullptr, U, nullptr, U + K * ld, nullptr, bar, nullptr, K, ld}, st);
+    } else {
+        err = cudaFuncSetAttribute(chol_solve_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)((SM_FIXED + CHOL_MAX_K) * sizeof(float)));
+        if (err != cudaSuccess) return (int)err;
+        const size_t smem = (SM_FIXED + (size_t)K) * sizeof(float);
+        chol_solve_kernel<false><<<1, CHOL_THREADS, smem, st>>>(S, nullptr, U, nullptr, K);
+        err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return (int)err;
-    const size_t smem = (SM_FIXED + (size_t)K) * sizeof(float);
-    chol_solve_kernel<false><<<1, CHOL_THREADS, smem, st>>>(S, nullptr, U, nullptr, K);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    chol_pack_kernel<<<(unsigned)(many_tiles(K) / SUB_TILE), PACK_THREADS, 0, st>>>(U, F, G, K);
+    chol_pack_kernel<<<(unsigned)(many_tiles(K) / SUB_TILE), PACK_THREADS, 0, st>>>(U, F, G, K, ld);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const bool vec = N % 4 == 0 && (uintptr_t)B % 16 == 0 && (uintptr_t)X % 16 == 0;

@@ -95,6 +95,15 @@ class Kernel:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
 
 
+class Launches:
+    """The launch count of a kernel that shares another Kernel's library:
+    its wrapper adds one where it launches that kernel."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+
 def build_all(kernels) -> float:
     """Build every kernel's library in parallel (one nvcc each); returns
     the wall seconds it took."""

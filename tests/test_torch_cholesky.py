@@ -17,9 +17,17 @@ kernel and 1.0e-8 with a float64 solve. The less dominant S (shift
 float64 solve 1.1e-6 / 9.5e-7 / 2.8e-6 / 2.9e-6; residual 1.0e-6 /
 5.1e-6 / 4.2e-6 / 5.7e-6.
 
+At K = 1030 (a ragged last panel) and 2048, sizes the grid route takes on
+the card, the plain version is held at both shifts against the JAX
+package's own solve above its Pallas gate, jax.scipy.linalg.cho_factor +
+cho_solve, atol 1e-4 and the relative and residual bounds of REL. The
+route is a pure function of K (cholesky.route), pinned here on both sides
+of GRID_MIN_K.
+
 The card-only cases hold the kernel against the plain version on the
 card at both shifts and on the zeroed row and column, by the same
-absolute, relative and residual bounds.
+absolute, relative and residual bounds, on both routes, and the grid
+route's output bit-identical over 10 runs.
 
 With many right-hand sides (rhs (K,N), the point covariances' solve) the
 plain version is held against jax.scipy.linalg.cho_factor + cho_solve at
@@ -103,6 +111,44 @@ def test_cholesky_solve_clamped_pivot(rng):
     np.testing.assert_allclose(x[keep], np.linalg.solve(S[keep][:, keep], b[keep]), atol=1e-4)
 
 
+@pytest.mark.parametrize("K", [1030, 2048])
+def test_cholesky_solve_grid_sizes_match_jax(rng, K):
+    """At the grid route's sizes: the plain version (the grid kernel's
+    algorithm) against jax.scipy.linalg.cho_factor + cho_solve at both
+    shifts."""
+    for shift, rel in REL.items():
+        S, b = _spd(rng, K, shift)
+        x = cholesky.cholesky_solve(torch.from_numpy(S), torch.from_numpy(b)).numpy()
+        xj = np.asarray(jsl.cho_solve(jsl.cho_factor(jnp.asarray(S), lower=True), jnp.asarray(b)))
+        np.testing.assert_allclose(x, xj, atol=1e-4)
+        assert _rel_gap(x, xj) <= rel, shift
+        assert _residual(S, b, x) <= rel, shift
+
+
+@pytest.mark.parametrize("K, want", [(6, "block"), (48, "block"), (96, "block"), (cholesky.GRID_MIN_K - 1, "block"),
+                                     (cholesky.GRID_MIN_K, "grid"), (384, "grid"), (1024, "grid"), (4096, "grid")])
+def test_route_by_k(K, want):
+    """The factorization's route is a function of K alone: one block below
+    GRID_MIN_K (192: the pipeline's and the dense modes' K = 48, the
+    mapping's 96), the grid from it on (the main path's 384, up to MAX_K)."""
+    assert cholesky.route(K) == want
+
+
+@pytest.mark.parametrize("K", [1, 6, 1024, 1030, 4096])
+def test_work_floats(K):
+    """The workspaces of csrc/cholesky.cu and csrc/cholesky_many.cu: U at
+    stride K on one block; on the grid route U at stride grid_ld(K), a
+    multiple of 4 (16-byte rows), then y and 1/L[j][j] (one rhs) or 1/L[j][j]
+    (many)."""
+    ld = cholesky.grid_ld(K)
+    assert ld % 4 == 0 and K <= ld < K + 4
+    tiles = 2 * (-(-K // 32)) * (-(-K // 32) + 1) // 2 * 1024
+    assert cholesky.work_floats(K, False, False) == K * K
+    assert cholesky.work_floats(K, False, True) == K * ld + 2 * ld
+    assert cholesky.work_floats(K, True, False) == tiles + K * K
+    assert cholesky.work_floats(K, True, True) == tiles + K * ld + ld
+
+
 def test_cholesky_solve_k1024(rng):
     S, b = _spd(rng, 1024)
     x = cholesky.cholesky_solve(torch.from_numpy(S), torch.from_numpy(b)).numpy()
@@ -140,16 +186,20 @@ def cuda():
     return torch.device("cuda")
 
 
+def _counter(K):
+    return cholesky.KERNEL_GRID if cholesky.route(K) == "grid" else cholesky.KERNEL
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K", [6, 390, 384, 1024])
+@pytest.mark.parametrize("K", [6, 390, 384, 1024, cholesky.GRID_MIN_K - 1, cholesky.GRID_MIN_K, 1030, 1536, 3072])
 def test_kernel_matches_plain_on_card(rng, cuda, K):
     for shift, rel in REL.items():
         S, b = _spd(rng, K, shift)
         St, bt = torch.from_numpy(S).to(cuda), torch.from_numpy(b).to(cuda)
-        n0 = cholesky.KERNEL.launches
+        n0 = _counter(K).launches
         x = cholesky.cholesky_solve(St, bt)
         torch.cuda.synchronize()
-        assert cholesky.KERNEL.launches == n0 + 1
+        assert _counter(K).launches == n0 + 1
         ref = cholesky.cholesky_solve_plain(St, bt)
         torch.testing.assert_close(x, ref, rtol=0, atol=1e-4)
         x, ref = x.cpu().numpy(), ref.cpu().numpy()
@@ -158,7 +208,7 @@ def test_kernel_matches_plain_on_card(rng, cuda, K):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("K, z", [(42, 35), (390, 100)])
+@pytest.mark.parametrize("K, z", [(42, 35), (390, 100), (1030, 1000)])
 def test_kernel_clamped_pivot_on_card(rng, cuda, K, z):
     """A zero row and column: the kernel's clamp (djj = 0 → 1e-20) gives a
     finite x with x[z] = 0, and the plain version's x elsewhere."""
@@ -176,13 +226,27 @@ def test_kernel_clamped_pivot_on_card(rng, cuda, K, z):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("K", [1024, 3072])
+def test_grid_route_bit_identical_on_card(rng, cuda, K):
+    """The grid route's every element is updated in a fixed order on a fixed
+    CTA: 10 runs on one input give the same bits (a race would not)."""
+    S, b = _spd(rng, K, 0.01)
+    St, bt = torch.from_numpy(S).to(cuda), torch.from_numpy(b).to(cuda)
+    assert cholesky.route(K) == "grid"
+    xs = [cholesky.cholesky_solve(St, bt) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(xs[0], x) for x in xs[1:])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("K, N", [(6, 1), (390, 1000), (384, 24576), (1024, 33), (3072, 1000), (384, 65),
-                                  (33, 24577)])
+                                  (33, 24577), (1030, 65)])
 def test_kernel_many_matches_plain_on_card(rng, cuda, K, N):
-    """K1 with many right-hand sides: ragged last blocks (K = 6, 390, 33) and
-    column tiles (N = 1, 1000, 33, 65, 24 577; N not a multiple of 4 takes the
-    4-byte staging), the covariances' shape (384 × 24 576) and the JAX
-    package's largest dense covariance (512 cameras, K = 3072)."""
+    """K1 with many right-hand sides: ragged last blocks (K = 6, 390, 33,
+    1030) and column tiles (N = 1, 1000, 33, 65, 24 577; N not a multiple of
+    4 takes the 4-byte staging), the covariances' shape (384 × 24 576) and
+    the JAX package's largest dense covariance (512 cameras, K = 3072); the
+    factorization on route(K)."""
     for shift, rel in REL.items():
         S, _ = _spd(rng, K, shift)
         B = rng.normal(size=(K, N)).astype(np.float32)
