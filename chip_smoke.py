@@ -263,6 +263,31 @@
    wall, the matches a pair, registered images, points and the launches.
    How many images register, the points' count and ATE are not held: the
    weights are seeded.
+15. The paper's nets (slice 14), run after 14: seeded checkpoints in the
+   official layouts (dsine.pth, roma_outdoor.pth, dinov2_vitl14_pretrain.pth,
+   drawn on the card at the pinned manifests' names and shapes) loaded
+   through the port's loaders, manifest-checked. (a) At full width on the
+   card over 14's render (5 images of 640×480): DSINE-B5 on every image,
+   one pass and the flipped pair (unit normals, positive variances); RoMa
+   (DINOv2 ViT-L/14, VGG19-BN, the GP, 5 decoder blocks, the refiners) at
+   672² on each of the 10 pairs, timed by stage, K1 many launched once a
+   pair by the GP's K_bb solve (K = 48² = 2304, N = 512). (b) Card against
+   CPU, cut: DSINE-B5 on one image at 320×240 (normals within 1e-3, the
+   variance within 1e-3 of its largest), RoMa's forward on one pair at 224²
+   (flow within 1e-3 and certainty logits within 1e-3 of their largest on
+   >= 99% of the pixels). (c) K1 many against its plain version at the GP's
+   own K_bb and right-hand sides (K1_REL[0.01] and the float64 rule), timed
+   beside the plain version, torch.linalg.cholesky + torch.cholesky_solve
+   and torch.linalg.solve, with its bound. (d) The port's reconstruct over
+   the 5 images under configs/paper/sp-lg_m3dv2.yaml (DSINE-kappa-fc
+   normals with their flipped pass, flip consistency) and under
+   configs/sp-roma-dense_m3dv2.yaml (the mutual-NN matches and RoMa's
+   dense ones), both with Metric3Dv2-small and (d)'s mapping SuperPoint
+   and LightGlue, the launch counts at 0 just before each: held that each
+   reaches its outputs, the nets' tensors and forwards on the card, the
+   depth store's normals2, the dense store's pairs and one K1 many launch
+   by the GP a pair; printed: wall, each pipe.* phase, registered images,
+   points and launches (not held: the weights are seeded).
 
 `python3 chip_smoke.py --profile` adds one main-path run under
 torch.profiler and prints its device time by kernel.
@@ -274,10 +299,11 @@ checks, the scene phase's checks and one line per wall time, the scene
 refinement's checks and wall times and its launches (a line of their
 own), the mapping phase's lines and launches, the pipeline phase's lines
 and launches, the dense modes phase's lines and launches, the sparse BA phase's lines and launches,
-the distributed BA's lines and launches, the neural extraction's lines and launches, a `{"kernels":
-[...]}` line (K1 twice more, at the dense modes phase's last global BA and at the distributed BA's dense-T
-route; K4's tensor-core kernel in bfloat16 with (d)'s launches and its float32 kernel with (a)'s float32
-launches, both at the neural phase's largest bucket), and last
+the distributed BA's lines and launches, the neural extraction's lines and launches, the paper nets' lines
+and launches, a `{"kernels": [...]}` line (K1 twice more, at the dense modes phase's last global BA and at the
+distributed BA's dense-T route; K4's tensor-core kernel in bfloat16 with (d)'s launches and its float32 kernel
+with (a)'s float32 launches, both at the neural phase's largest bucket; K1 many at the RoMa GP's K_bb with its
+launches by the GP in 15 (d)), and last
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before that
 line. Without a CUDA card it exits 1 and prints no result. Inputs are
 synthetic, made from a seed with numpy.
@@ -3121,8 +3147,8 @@ def check_written_model(rec, out_dir):
     back = read_text(out_dir)
     names = {im.name: im for im in rec.registered_images.values()}
     got = {im.name: im for im in back.registered_images.values()}
-    gap = max(max(np.abs(im.pose.q - got[n].pose.q).max(), np.abs(im.pose.t - got[n].pose.t).max())
-              for n, im in names.items()) if names.keys() == got.keys() else float("inf")
+    gap = max((max(np.abs(im.pose.q - got[n].pose.q).max(), np.abs(im.pose.t - got[n].pose.t).max())
+               for n, im in names.items()), default=0.0) if names.keys() == got.keys() else float("inf")
     if names.keys() != got.keys() or gap > 1e-6 or back.num_points3D() != rec.num_points3D():
         raise AssertionError(f"written model: images {sorted(got)} vs {sorted(names)}, pose gap {gap}, points "
                              f"{back.num_points3D()} vs {rec.num_points3D()}")
@@ -4312,6 +4338,443 @@ def neural_phase(dev, counted, size="full"):
     return dict(full=full, card_vs_cpu=vs, pipeline=pipe, launches=launches), launches, k4
 
 
+# ---- the paper's nets (slice 14): DSINE normals and the RoMa dense matcher ----
+
+
+def merge_conf(a, b):
+    """a with b merged in, key by key, into its nested dicts (a copy)."""
+    out = json.loads(json.dumps(a))
+    for k, v in b.items():
+        out[k] = merge_conf(out.get(k, {}), v) if isinstance(v, dict) else v
+    return out
+
+
+# configs/paper/sp-lg_m3dv2.yaml and configs/sp-roma-dense_m3dv2.yaml as the port loads them, cut as the neural
+# phase's (d) cuts sp-lg_m3dv2: Metric3Dv2-small with its calibration (sp-lg_m3dv2-small.yaml), the directory
+# store, dist_ba off; the configs' own grid retrieval (no NetVLAD)
+PAPER_BASE = json.loads(json.dumps(NEURAL_CONF))
+del PAPER_BASE["extractors"]["retrieval"]
+PAPER_LG_CONF = merge_conf(PAPER_BASE, {"extractors": {"normals": "dsine-kappa-fc"},
+                                        "image_priors": {"normals": {"flip_consistency": True}}})
+ROMA_DENSE_CONF = merge_conf(PAPER_BASE, {"matches_mode": "sparse+dense", "extractors": {
+    "matcher": "nn", "dense_matcher": "roma",
+    "dense_matcher_conf": {"weights_path": None, "dinov2_weights_path": None, "mode": "sparse+dense"}}})
+# The nets at full width: DSINE-B5 (the official dsine.pth layout) on the neural phase's render (5 images of
+# 640×480), RoMa (roma_outdoor.pth + dinov2_vitl14_pretrain.pth, ViT-L/14) at its 672² working resolution on each
+# pair of them. Card against CPU cut: DSINE-B5 on one image cut to cpu_hw (a quarter of the pixels), RoMa on one
+# pair at cpu_resolution (16² coarse tokens, K = 256 for the GP, instead of 48²), so that the CPU's forwards stay
+# a small share of the phase. "small": a rehearsal on the CPU at tests/test_dsine.py's and tests/test_roma.py's
+# TINY widths.
+PAPER_SIZES = {
+    "full": dict(neural="full", dsine={}, roma={}, cpu_hw=(240, 320), cpu_resolution=224),
+    "small": dict(neural="small",
+                  dsine=dict(stages=((1, 8, 1, 1, 3), (6, 12, 1, 2, 3), (6, 16, 1, 2, 5), (6, 16, 1, 2, 3),
+                                     (6, 24, 2, 2, 5)), stem=8, head=32, decoder_nf=16, feature_dim=8,
+                             hidden_dim=8, iters=2),
+                  roma=dict(vit_dim=32, vit_depth=2, vit_heads=2, vit_patch=14, pos_grid=8, gp_dim=8, feat_dim=8,
+                            dec_blocks=2, dec_heads=2, cls_res=8, kernel_T=0.2, sigma_noise=0.1,
+                            vgg_spec=(("C", 4), "M", ("C", 6), "M", ("C", 8), "M", ("C", 12), "M"),
+                            scales=(("16", 32, 8, 4, 2, 1, True), ("8", 12, 8, 4, 1, 1, True),
+                                    ("4", 8, 6, 2, 0, 1, True), ("2", 6, 4, 2, 0, 1, True),
+                                    ("1", 4, 3, 2, 0, 1, False)), resolution=112),
+                  cpu_hw=(120, 160), cpu_resolution=224),
+}
+# card against CPU: DSINE's normals within M3D_REL (absolute: unit vectors) and its variance within M3D_REL of its
+# largest value (float32's summation order through the encoder's 39 blocks and the 5 GRU steps); RoMa's flow within
+# ROMA_FLOW_TOL ([-1, 1] units: 0.08 px at 224²) and certainty logits within ROMA_FLOW_TOL of their largest
+# magnitude on at least KP_COMMON of the pixels (the anchor classifier's argmax flips a cell on float32 ties)
+ROMA_FLOW_TOL = 1e-3
+
+
+def seeded_state_dict(shapes, seed, dev):
+    """An official-layout state dict (CPU tensors) of seeded draws on `dev`
+    for {name: shape}: biases and running means 0, norm and BatchNorm
+    weights and LayerScale gammas 1, running variances |1 + 0.1 n|, the
+    class token and position embedding 0.02 n, every other weight n /
+    sqrt(fan_in) (fan_in: the product of its dimensions after the first),
+    so that activations keep their scale through the nets' depth."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in ("bias", "running_mean"):
+            v = torch.zeros(shape, device=dev)
+        elif leaf == "running_var":
+            v = (1 + 0.1 * torch.randn(shape, generator=g, device=dev)).abs()
+        elif leaf == "gamma" or (leaf == "weight" and len(shape) == 1):
+            v = torch.ones(shape, device=dev)
+        elif leaf in ("cls_token", "pos_embed"):
+            v = 0.02 * torch.randn(shape, generator=g, device=dev)
+        else:
+            v = torch.randn(shape, generator=g, device=dev) * float(np.prod(shape[1:])) ** -0.5
+        sd[name] = v.cpu()
+    return sd
+
+
+def paper_checkpoints(d, size, dev, seed=SEED + 20):
+    """dsine.pth, roma_outdoor.pth and dinov2_vitl14_pretrain.pth in the
+    official layouts (seeded_state_dict, drawn on `dev`) at the size's
+    widths: at full width the pinned manifests' names and shapes, at small
+    those of the port's nets at the tiny configs. Returns {role: path} and
+    the seconds it took."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.manifest import load_manifest
+    from mpsfm_tpu_torch.extraction.nets.dsine import DSINE
+    from mpsfm_tpu_torch.extraction.nets.roma import RomaNet
+
+    t = time.perf_counter()
+    d.mkdir(parents=True, exist_ok=True)
+    if size["neural"] == "full":
+        shapes, outdoor, dinov2 = (load_manifest(n) for n in ("dsine", "roma-outdoor", "roma-dinov2"))
+    else:
+        shapes = {k: tuple(v.shape) for k, v in DSINE(size["dsine"], device="cpu").init_random(0).items()}
+        roma = {k: tuple(v.shape) for k, v in RomaNet(size["roma"], device="cpu").init_random(0).items()}
+        outdoor = {k: v for k, v in roma.items() if not k.startswith("dinov2.")}
+        dinov2 = {k[len("dinov2."):]: v for k, v in roma.items() if k.startswith("dinov2.")}
+    paths = {"dsine": d / "dsine.pth", "roma": d / "roma_outdoor.pth", "dinov2": d / "dinov2_vitl14_pretrain.pth"}
+    torch.save(seeded_state_dict(shapes, seed, dev), paths["dsine"])
+    torch.save(seeded_state_dict(outdoor, seed + 1, dev), paths["roma"])
+    torch.save({"model": seeded_state_dict(dinov2, seed + 2, dev)}, paths["dinov2"])  # the official file's nesting
+    return paths, time.perf_counter() - t
+
+
+def paper_nets_full_width(dev, paths, size, rgbs, grays, intr):
+    """(a) DSINE and RoMa at full width on `dev`, loaded through the port's
+    loaders (manifest-checked at the official sizes): DSINE on every image,
+    one pass and the flipped pair; RoMa on every pair of the gray images as
+    Extraction hands them, timed by stage (the VGG pyramid, DINOv2, the
+    projections, the GP with its K1 many launch, the match decoder with
+    the anchor classifier, the refiners), its K1 many launches counted (one
+    a pair) and the GP's last K_bb and right-hand sides kept. Returns the
+    summary and the kept (K_bb, f)."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+    from mpsfm_tpu_torch.extraction.nets import roma
+    from mpsfm_tpu_torch.extraction.nets.dsine import DSINE
+
+    out = {}
+    net = DSINE({**size["dsine"], "weights_path": str(paths["dsine"])}, device=dev)
+    net.infer_image(rgbs[0], intr)  # warm-up
+    sync(dev)
+    for what, flips in (("dsine_s", (False,)), ("dsine_pair_s", (False, True))):
+        t = time.perf_counter()
+        maps = [net.infer_image(im, intr, flip=f) for im in rgbs for f in flips]
+        sync(dev)
+        out[what] = (time.perf_counter() - t) / len(rgbs)
+    out["dsine_ok"] = all(m["normals"].shape == (*rgbs[0].shape[:2], 3) and np.isfinite(m["normals"]).all()
+                          and np.abs(np.linalg.norm(m["normals"], axis=-1) - 1).max() < 1e-4
+                          and (m["normals_variance"] > 0).all() for m in maps)
+    out["dsine_params"] = sum(v.numel() for v in net.params.values())
+    del net, maps
+    m = roma.RomaMatcher({**size["roma"], "weights_path": str(paths["roma"]),
+                          "dinov2_weights_path": str(paths["dinov2"])}, device=dev)
+    out["roma_params"] = sum(v.numel() for v in m.net.params.values())
+    m(grays[0], grays[1])  # warm-up
+    sync(dev)
+    pairs = [(a, b) for a in range(len(grays)) for b in range(a + 1, len(grays))]
+    times = {}
+    n0 = cholesky.KERNEL_MANY.launches
+    with last_call(roma, "cholesky_solve", lambda a, out: a[0].shape[0]) as kept:
+        t = time.perf_counter()
+        res = [m(grays[a], grays[b], times=times) for a, b in pairs]
+        sync(dev)
+        wall = time.perf_counter() - t
+    out["roma_gp_launches"] = cholesky.KERNEL_MANY.launches - n0
+    out["roma_s_per_pair"] = wall / len(pairs)
+    out["roma_stage_s"] = {k: v / len(pairs) for k, v in times.items()}
+    out["roma_matches"] = [len(r["certainty"]) for r in res]
+    out["roma_resolution"] = m.resolution
+    out["gp_K"], out["gp_N"] = kept["args"][0].shape[0], kept["args"][1].shape[1]
+    out["roma_ok"] = all(np.isfinite(r["keypoints1"]).all() and np.isfinite(r["certainty"]).all() for r in res)
+    del m
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, (kept["args"][0], kept["args"][1])
+
+
+def paper_nets_card_vs_cpu(dev, paths, size, rgbs, grays, intr):
+    """(b) DSINE and RoMa on `dev` and on the CPU from the same checkpoints,
+    cut: DSINE on the first image resized to cpu_hw, both passes (normals
+    within M3D_REL, the variance within M3D_REL of its largest value);
+    RoMa's forward on the first pair at cpu_resolution (flow within
+    ROMA_FLOW_TOL and certainty logits within ROMA_FLOW_TOL of their
+    largest magnitude on at least KP_COMMON of the pixels). Returns the gaps
+    and "ok"."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.nets.depth_anything import _resize
+    from mpsfm_tpu_torch.extraction.nets.dsine import DSINE
+    from mpsfm_tpu_torch.extraction.nets.roma import RomaMatcher
+
+    h, w = size["cpu_hw"]
+    img = _resize(torch.as_tensor(rgbs[0], dtype=torch.float32)[None], (h, w))[0].numpy()
+    sx, sy = w / rgbs[0].shape[1], h / rgbs[0].shape[0]
+    cut_intr = (intr[0] * sx, intr[1] * sy, intr[2] * sx, intr[3] * sy)
+    maps = {}
+    for d in (dev, torch.device("cpu")):
+        net = DSINE({**size["dsine"], "weights_path": str(paths["dsine"])}, device=d)
+        maps[d.type] = [net.infer_image(img, cut_intr, flip=f) for f in (False, True)]
+    out = {"dsine_normals": max(float(np.abs(a["normals"] - b["normals"]).max())
+                                for a, b in zip(maps[dev.type], maps["cpu"])),
+           "dsine_variance_rel": max(float(np.abs(a["normals_variance"] - b["normals_variance"]).max()
+                                           / np.abs(b["normals_variance"]).max())
+                                     for a, b in zip(maps[dev.type], maps["cpu"]))}
+    fwd = {}
+    for d in (dev, torch.device("cpu")):
+        m = RomaMatcher({**size["roma"], "resolution": size["cpu_resolution"], "weights_path": str(paths["roma"]),
+                         "dinov2_weights_path": str(paths["dinov2"])}, device=d)
+        with torch.no_grad():
+            xa, xb = (m._prep(g, m.resolution)[0] for g in grays[:2])
+            flow, cert = m.net.forward(xa, xb)
+        fwd[d.type] = (flow[0].cpu().numpy(), cert[0].cpu().numpy())
+    (fg, cg), (fc, cc) = fwd[dev.type], fwd["cpu"]
+    dflow = np.abs(fg - fc).max(-1)
+    dcert = np.abs(cg - cc)
+    agree = (dflow <= ROMA_FLOW_TOL) & (dcert <= ROMA_FLOW_TOL * max(1.0, float(np.abs(cc).max())))
+    out.update(roma_share=float(agree.mean()), roma_flow_median=float(np.median(dflow)),
+               roma_flow_max=float(dflow.max()), roma_cert_max=float(dcert.max()), roma_res=int(fg.shape[0]))
+    out["ok"] = bool(out["dsine_normals"] <= M3D_REL and out["dsine_variance_rel"] <= M3D_REL
+                     and out["roma_share"] >= KP_COMMON)
+    return out
+
+
+def k1_many_check_in_situ(S, Bm, what):
+    """K1 many on a path's own system (S, Bm) by k1_many_check's float64
+    rule, at K1_REL[0.01] unless the plain version itself lies farther than
+    that from the float64 solve, then at K1_ILL_REL (as k1_check_in_situ
+    decides for K1). Returns (max |ΔX|, a line)."""
+    from mpsfm_tpu_torch.ba import cholesky
+
+    rel, res = f64_gaps(S, Bm, cholesky.cholesky_solve_plain(S, Bm))
+    bound = K1_REL[0.01] if rel <= K1_REL[0.01] and res <= K1_REL[0.01] else K1_ILL_REL
+    return k1_many_check(S, Bm, bound, f"{what}; the plain version {rel:.2e} relative, residual {res:.2e} from the "
+                                       "float64 solve", f64=True)
+
+
+def k1_many_gp(K_bb, f):
+    """(c) K1 many against cholesky_solve_plain at the GP's own K_bb and
+    right-hand sides (k1_many_check_in_situ), timed beside its plain version
+    and two library calls: torch.linalg.cholesky + torch.cholesky_solve (the
+    row's) and torch.linalg.solve (the JAX package's LU), and its bound
+    (K³/3 + 2K²N FLOP; K_bb, f and the solution once over the memory
+    rate). Returns a row dict."""
+    import torch
+
+    from mpsfm_tpu_torch.ba import cholesky
+
+    K, N = f.shape
+    err, line = k1_many_check_in_situ(K_bb, f, f"K1 many at the RoMa GP's K_bb (K = {K}, N = {N})")
+    ms = cuda_ms(lambda: cholesky.cholesky_solve(K_bb, f), 10)
+    plain_ms = cuda_ms(lambda: cholesky.cholesky_solve_plain(K_bb, f), 2)
+    lib_ms = cuda_ms(lambda: torch.cholesky_solve(f, torch.linalg.cholesky(K_bb)), 10)
+    lu_ms = cuda_ms(lambda: torch.linalg.solve(K_bb, f), 10)
+    ops_ms = (K ** 3 / 3 + 2.0 * K * K * N) / PEAK_F32 * 1e3
+    bytes_ms = 4.0 * (K * K + 2 * K * N) / PEAK_BYTES * 1e3
+    cond = float(torch.linalg.cond(K_bb.double()))
+    line += (f"; condition number {cond:.4g}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library (cholesky + "
+             f"cholesky_solve) {lib_ms:.4f} ms, torch.linalg.solve {lu_ms:.4f} ms, bound {max(ops_ms, bytes_ms):.5f} "
+             f"ms ({'operations' if ops_ms >= bytes_ms else 'bytes'})")
+    print(line)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, lu_ms=lu_ms, ops_ms=ops_ms, bytes_ms=bytes_ms)
+
+
+@contextlib.contextmanager
+def paper_nets_seen():
+    """Record the DSINE backends and RoMa matchers the pipeline builds and
+    the device of each of their forwards. Yields (models: role -> list,
+    seen: role -> set of device types)."""
+    from mpsfm_tpu_torch.extraction import priors
+    from mpsfm_tpu_torch.extraction.nets import dsine, roma
+
+    models, seen = {"normals": [], "dense": []}, {"normals": set(), "dense": set()}
+    orig = dict(be=priors._DSINEBackend, matcher=roma.RomaMatcher, dfwd=dsine.DSINE.forward, rfwd=roma.RomaNet.forward)
+
+    def recorder(cls, role):
+        def make(*a, **k):
+            m = cls(*a, **k)
+            models[role].append(m)
+            return m
+
+        return make
+
+    def dfwd(self, x, *a, **k):
+        seen["normals"].add(x.device.type)
+        return orig["dfwd"](self, x, *a, **k)
+
+    def rfwd(self, xa, *a, **k):
+        seen["dense"].add(xa.device.type)
+        return orig["rfwd"](self, xa, *a, **k)
+
+    priors._DSINEBackend, roma.RomaMatcher = recorder(orig["be"], "normals"), recorder(orig["matcher"], "dense")
+    dsine.DSINE.forward, roma.RomaNet.forward = dfwd, rfwd
+    try:
+        yield models, seen
+    finally:
+        priors._DSINEBackend, roma.RomaMatcher = orig["be"], orig["matcher"]
+        dsine.DSINE.forward, roma.RomaNet.forward = orig["dfwd"], orig["rfwd"]
+
+
+def paper_conf(base, npaths, ppaths, size):
+    """A paper phase conf with the checkpoints' paths: (d)'s mapping pair of
+    SuperPoint and LightGlue, Metric3Dv2-small, DSINE where the conf takes
+    dsine normals, RoMa where it takes the roma dense matcher."""
+    nsize = NEURAL_SIZES[size["neural"]]
+    conf = json.loads(json.dumps(base))
+    ex = conf["extractors"]
+    ex["feature_conf"].update(weights_path=str(npaths["features_mapping"]), **nsize["sp"])
+    if ex["matcher"] == "lightglue":
+        ex["matcher_conf"].update(weights_path=str(npaths["matcher_mapping"]), **nsize["lg"])
+    ex["depth_conf"] = {"weights_path": str(npaths["depth"]), **nsize["m3d_tiny"]}
+    if ex.get("normals", "").startswith("dsine"):
+        ex["normals_conf"] = {"weights_path": str(ppaths["dsine"]), **size["dsine"]}
+    if ex.get("dense_matcher") == "roma":
+        ex["dense_matcher_conf"].update(weights_path=str(ppaths["roma"]), dinov2_weights_path=str(ppaths["dinov2"]),
+                                        **size["roma"])
+    return conf
+
+
+def paper_pipeline(dev, counted, what, conf, data_dir):
+    """(d) The port's reconstruct under `conf` over a copy of the render, the
+    launch counts at 0 just before. Held: it reaches its outputs (the text
+    model written and read back equal to the map); the DSINE or RoMa nets it
+    builds hold their tensors on `dev` and run their forwards there; the
+    depth store keeps DSINE's normals2 (the flip-consistency prior's input)
+    where the conf takes them; the dense store holds every pair where the
+    conf matches densely, and on the card K1 many launched once a RoMa pair
+    by the GP. Not held (seeded weights): registered images, points.
+    Returns (summary, launches)."""
+    import shutil
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.ba import cholesky
+    from mpsfm_tpu_torch.extraction.nets import roma
+    from mpsfm_tpu_torch.utils import io
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    data = Path(data_dir).parent / what
+    shutil.copytree(data_dir, data)
+    TIMERS.reset()
+    for k in counted.values():
+        k.launches = 0
+    gp = {"calls": 0, "launches": 0}
+    solve = roma.cholesky_solve
+
+    def gp_solve(S, rhs):  # the GP's K1 many launches apart from the point covariances'
+        n = cholesky.KERNEL_MANY.launches
+        x = solve(S, rhs)
+        gp["calls"] += 1
+        gp["launches"] += cholesky.KERNEL_MANY.launches - n
+        return x
+
+    roma.cholesky_solve = gp_solve
+    try:
+        with paper_nets_seen() as (models, seen):
+            rec, ok, wall = run_pipeline(data, conf, dev)
+    finally:
+        roma.cholesky_solve = solve
+    launches = {name: k.launches for name, k in counted.items()}
+    pipe = {k: round(v, 4) for k, v in TIMERS.totals.items() if k.startswith("pipe.")}
+    check_written_model(rec, data / "sfm_outputs")
+    cache = data / "cache"
+    names = sorted(p.name for p in (data / "images").iterdir())
+    pairs = io.read_pairs(cache / "pairs.txt")
+    ex = conf["extractors"]
+    out = dict(ok=bool(ok), registered=rec.num_reg_images(), images=rec.num_images(), points=rec.num_points3D(),
+               wall=wall, pipe=pipe, pairs=len(pairs), gp_calls=gp["calls"], gp_launches=gp["launches"],
+               seen={k: sorted(v) for k, v in seen.items()})
+    problems = []
+    tensors = {role: sorted({t.device.type for m in ms for t in m.net.params.values()}) for role, ms in models.items()}
+    out["tensors"] = tensors
+    want = {"normals": ex.get("normals", "").startswith("dsine"), "dense": ex.get("dense_matcher") == "roma"}
+    for role, used in want.items():
+        if used and (tensors[role] != [dev.type] or out["seen"][role] != [dev.type]):
+            problems.append(f"{role} off {dev.type}: tensors {tensors[role]}, forwards {out['seen'][role]}")
+    if want["normals"]:
+        keys = set(io.get_mono_map(cache / "depth-metric3dv2-small.npyd", names[0]))
+        out["depth_keys"] = sorted(keys)
+        if not {"depth", "normals", "normals2", "normals2_variance"} <= keys:
+            problems.append(f"depth store keys {sorted(keys)}")
+    if want["dense"]:
+        per_pair = [len(io.get_dense_pair(cache / "dense-roma.npyd", a, b)[2]) for a, b in pairs]
+        out["dense_per_pair"] = per_pair
+        if not any(per_pair) or gp["calls"] != len(pairs):
+            problems.append(f"dense pairs {per_pair}, GP solves {gp['calls']} for {len(pairs)} pairs")
+        if dev.type == "cuda" and gp["launches"] != gp["calls"]:
+            problems.append(f"K1 many launched {gp['launches']} times by {gp['calls']} GP solves")
+    print(f"paper nets pipeline ({what}, {len(names)} images): {wall:.3f} s wall, reached its outputs; registered "
+          f"{out['registered']}/{out['images']}, {out['points']} points (not held: seeded weights); {len(pairs)} "
+          f"pairs; " + (f"dense matches a pair {out['dense_per_pair']}; GP solves {gp['calls']}, K1 many launches by "
+                        f"the GP {gp['launches']}; " if want["dense"] else "")
+          + (f"depth store keys {out['depth_keys']}; " if want["normals"] else "")
+          + f"tensors on {json.dumps(tensors)}, forwards on {json.dumps(out['seen'])}; launches {json.dumps(launches)}")
+    print(f"paper nets pipeline ({what}) pipe.* phases (s wall): {json.dumps(pipe)}")
+    if problems:
+        raise AssertionError(f"paper nets pipeline ({what}): {problems}: {out}")
+    return out, launches
+
+
+def paper_nets_phase(dev, counted, size="full"):
+    """Slice 14, the paper's nets: seeded checkpoints in the official
+    layouts (paper_checkpoints; the neural phase's SuperPoint, LightGlue
+    and Metric3Dv2-small ones by neural_checkpoints), loaded through the
+    port's loaders; (a) DSINE-B5 and RoMa at full width on the card
+    (paper_nets_full_width), (b) both card against CPU, cut
+    (paper_nets_card_vs_cpu), (c) K1 many at the GP's K_bb (k1_many_gp),
+    (d) the port's reconstruct under PAPER_LG_CONF and under
+    ROMA_DENSE_CONF (paper_pipeline). size: "full", or "small" for a
+    rehearsal on the CPU (counted {}; no K1 many check). Returns (summary,
+    {run: launches}, the K1 many row or None)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    dev = torch.device(dev)
+    size_name, size = size, PAPER_SIZES[size]
+    nsize = NEURAL_SIZES[size["neural"]]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        npaths, n_s = neural_checkpoints(Path(tmp) / "weights", nsize)
+        ppaths, p_s = paper_checkpoints(Path(tmp) / "weights", size, dev)
+        data = Path(tmp) / "scene"
+        render_rgbd_dir(data, **nsize["render"])
+        cfg = nsize["render"]
+        intr = (cfg["focal"], cfg["focal"], cfg["img_wh"][0] / 2, cfg["img_wh"][1] / 2)
+        grays, rgbs = neural_images(data)
+        full, (K_bb, f) = paper_nets_full_width(dev, ppaths, size, rgbs, grays, intr)
+        st = full["roma_stage_s"]
+        print(f"paper nets ({size_name}): checkpoints written in {n_s + p_s:.2f} s; DSINE ({full['dsine_params'] / 1e6:.2f}"
+              f" M params) {full['dsine_s'] * 1e3:.2f} ms an image, {full['dsine_pair_s'] * 1e3:.2f} ms an image with "
+              f"its flipped pass ({cfg['img_wh'][0]}x{cfg['img_wh'][1]}); RoMa ({full['roma_params'] / 1e6:.2f} M "
+              f"params) at {full['roma_resolution']}^2 {full['roma_s_per_pair'] * 1e3:.2f} ms a pair: "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in st.items())
+              + f" (GP: K = {full['gp_K']}, N = {full['gp_N']}, K1 many launches {full['roma_gp_launches']} for "
+              f"{len(full['roma_matches'])} pairs); matches a pair {full['roma_matches']}")
+        if not (full["dsine_ok"] and full["roma_ok"]) or (
+                dev.type == "cuda" and full["roma_gp_launches"] != len(full["roma_matches"])):
+            raise AssertionError(f"paper nets full width: {full}")
+        vs = paper_nets_card_vs_cpu(dev, ppaths, size, rgbs, grays, intr)
+        print(f"paper nets card vs CPU: DSINE-B5 at {size['cpu_hw'][1]}x{size['cpu_hw'][0]}, both passes: normals "
+              f"{vs['dsine_normals']:.2e}, variance {vs['dsine_variance_rel']:.2e} of its largest (bound {M3D_REL}); "
+              f"RoMa's forward at {vs['roma_res']}^2: {vs['roma_share']:.4%} of the pixels agree (bound {KP_COMMON}: "
+              f"flow within {ROMA_FLOW_TOL}, certainty within {ROMA_FLOW_TOL} x its largest), flow gap median "
+              f"{vs['roma_flow_median']:.2e}, max {vs['roma_flow_max']:.2e}, certainty max {vs['roma_cert_max']:.2e}")
+        if not vs["ok"]:
+            raise AssertionError(f"paper nets card vs CPU: {vs}")
+        row = k1_many_gp(K_bb, f) if dev.type == "cuda" else None
+        del K_bb, f
+        runs, launches = {}, {}
+        for what, base in (("paper sp-lg_m3dv2", PAPER_LG_CONF), ("sp-roma-dense_m3dv2", ROMA_DENSE_CONF)):
+            runs[what], launches[what] = paper_pipeline(dev, counted, what, paper_conf(base, npaths, ppaths, size),
+                                                        data)
+    print(f"paper nets phase: {time.perf_counter() - t0:.1f} s wall")
+    return dict(full=full, card_vs_cpu=vs, pipelines=runs), launches, row
+
+
 # ---- the sparse BA solver (slice 8) ----
 
 # the JAX package's 500+ image BA bench (scripts/bench_ba_large.py): __graft_entry__'s
@@ -5373,6 +5836,9 @@ def main():
     neural, neural_launches, k4 = neural_phase(dev, {**counted, "attention": attention.KERNEL,
                                                      "attention_tc": attention.KERNEL_TC})
     neural_k4_f32_launches = neural["full"]["k4_launches"]["float32"]["attention"]
+    print(f"paper nets phase on {card_line()}")
+    paper, paper_launches, gp_k1 = paper_nets_phase(dev, {**counted, "attention": attention.KERNEL,
+                                                          "attention_tc": attention.KERNEL_TC})
     sparse, sparse_launches = sparse_ba_phase(dev, counted)
     dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
@@ -5428,11 +5894,24 @@ def main():
         print(f"K4 {dt} at bucket {big}: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, library "
               f"{k['library_ms']:.4f} ms, bound {bound:.5f} ms), {launched} launches"
               + (" in the neural pipeline run" if dt == "bfloat16" else " in the float32 LightGlue run of (a)"))
+    # K1 many at the RoMa GP's K_bb (the JAX package's jnp.linalg.solve, XLA's LU): its launches by the GP in the
+    # paper phase's sp-roma-dense_m3dv2 run
+    gp_launches = paper["pipelines"]["sp-roma-dense_m3dv2"]["gp_launches"]
+    bound = max(gp_k1["ops_ms"], gp_k1["bytes_ms"])
+    rows.append(dict(
+        name=f"cholesky_solve_many (RoMa GP, K = {paper['full']['gp_K']}, N = {paper['full']['gp_N']})", route="cuda",
+        source="mpsfm_tpu_torch/csrc/cholesky_many.cu", replaces="mpsfm_tpu/extraction/nets/roma.py:342",
+        launches=gp_launches, max_abs_err=gp_k1["err"], ms=gp_k1["ms"], plain_ms=gp_k1["plain_ms"], bound_ms=bound,
+        bound_by="operations" if gp_k1["ops_ms"] >= gp_k1["bytes_ms"] else "bytes", library_ms=gp_k1["library_ms"]))
+    print(f"K1 many at the RoMa GP: {gp_k1['ms']:.4f} ms (plain {gp_k1['plain_ms']:.3f} ms, library "
+          f"{gp_k1['library_ms']:.4f} ms, torch.linalg.solve {gp_k1['lu_ms']:.4f} ms, bound {bound:.5f} ms), "
+          f"{gp_launches} launches by the GP in the sp-roma-dense_m3dv2 run")
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")
     print(f"dense modes launches: {json.dumps(dense_launches)}")
     print(f"neural extraction launches: {json.dumps(neural_launches)}")
+    print(f"paper nets launches: {json.dumps(paper_launches)}")
     print(f"sparse BA launches: {json.dumps(sparse_launches)}")
     print(f"distributed BA launches: K1 {dist_k1_launches} on the dense-T route; the mapper on rank 0 "
           f"{json.dumps(dist_mapper_launches)}")

@@ -78,15 +78,13 @@ def _solve_lower(L: torch.Tensor, b: torch.Tensor, transpose: bool = False) -> t
     return x[:, 0] if b.dim() == 1 else x
 
 
-def cholesky_solve_plain(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """The kernel's algorithm in torch: right-looking blocked Cholesky of
-    the lower triangle with NB-wide panels (the last one ragged) — per
+def cholesky_factor_plain(S: torch.Tensor) -> torch.Tensor:
+    """The kernel's factorization in torch: right-looking blocked Cholesky
+    of the lower triangle with NB-wide panels (the last one ragged) — per
     panel the diagonal block column by column with d = sqrt(max(djj,
     1e-20)), the panel's triangular solve L₂₁ = A₂₁·L₁₁⁻ᵀ and the trailing
-    update A₂₂ −= L₂₁·L₂₁ᵀ — then blocked forward and backward
-    substitution. (The kernel runs each block of the forward substitution
-    inside the panel loop; every block of y gets the same updates in the
-    same order either way.)"""
+    update A₂₂ −= L₂₁·L₂₁ᵀ. Returns a (K,K) matrix whose lower triangle is
+    L (its strict upper triangle is not read)."""
     K = S.shape[0]
     A = torch.tril(S)
     for c0 in range(0, K, NB):
@@ -104,6 +102,16 @@ def cholesky_solve_plain(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
             L21 = _solve_lower(L11, A[c1:, c0:c1].T).T
             A[c1:, c0:c1] = L21
             A[c1:, c1:] -= L21 @ L21.T  # only the lower triangle is read again
+    return A
+
+
+def cholesky_solve_plain(S: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The kernel's algorithm in torch: cholesky_factor_plain, then blocked
+    forward and backward substitution. (The kernel runs each block of the
+    forward substitution inside the panel loop; every block of y gets the
+    same updates in the same order either way.)"""
+    K = S.shape[0]
+    A = cholesky_factor_plain(S)
     y = rhs.clone()
     for c0 in range(0, K, NB):
         c1 = min(c0 + NB, K)

@@ -3,7 +3,7 @@
 What carries over is the state the JAX package hands between its device
 programs, its cameras and poses, the depth-consistency check's grids and
 per-pair rows, the scene's host state, and the weights of the neural
-extraction (SuperPoint, LightGlue, NetVLAD, Metric3Dv2), as the official
+extraction (SuperPoint, LightGlue, NetVLAD, Metric3Dv2, DSINE, RoMa), as the official
 checkpoint layouts the port loads. Each device converter takes host arrays, e.g.
 `{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
 and returns tensors on `device` (the card unless the caller asks for the
@@ -310,3 +310,18 @@ def metric3d_state_dict(jparams, prefix="") -> dict:
     state dict of CPU tensors with the same names (an identity on names),
     each key preceded by `prefix` (the checkpoint's "depth_model.")."""
     return {prefix + k: _cpu32(v) for k, v in jparams.items()}
+
+
+def dsine_state_dict(jparams) -> dict:
+    """JAX DSINE params (a flat dict under the official names) -> the
+    official dsine.pth state dict of CPU tensors (an identity on names)."""
+    return {k: _cpu32(v) for k, v in jparams.items()}
+
+
+def roma_state_dicts(jparams) -> tuple[dict, dict]:
+    """JAX RomaNet params -> the two official files' state dicts of CPU
+    tensors: roma_outdoor.pth (every key but ``dinov2.*``) and
+    dinov2_vitl14_pretrain.pth (the ``dinov2.*`` keys without the prefix)."""
+    outdoor = {k: _cpu32(v) for k, v in jparams.items() if not k.startswith("dinov2.")}
+    dinov2 = {k[len("dinov2."):]: _cpu32(v) for k, v in jparams.items() if k.startswith("dinov2.")}
+    return outdoor, dinov2

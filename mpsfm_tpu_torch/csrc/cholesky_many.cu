@@ -17,7 +17,8 @@
 //      column a lane, by forward substitution of the identity);
 //   3. chol_subst_kernel: one block of 128 threads per tile of NT = 64 columns
 //      of B. Forward (L y = b) and backward (L^T x = y) by 32-row blocks: a
-//      block's update B_blk - sum_k L_blk,k Y_k (backward: L^T) and then its
+//      block's update B_blk - sum_k L_blk,k Y_k (backward: L^T; each chunk k's
+//      product summed apart, then added) and then its
 //      triangle, Linv_blk (B_blk - ...), are the same register-tiled product of
 //      a 32 x 32 tile of L by a 32 x NT chunk of Y, both staged in shared
 //      memory (cp.async, double-buffered), each thread holding a TM x 4 = 4 x 4
@@ -195,7 +196,16 @@ chol_subst_kernel(const float* __restrict__ F, const float* __restrict__ G, cons
             cp_async_commit();
             cp_async_wait<1>();
             __syncthreads();
-            tile_product(As[j & 1], Ys[j & 1], acc, tx, ty);
+            // chunk j's 32-term sums apart, then added to the update: one float32 chain over all K
+            // terms of a row loses ~sqrt(32) times the accuracy of the plain version's block by block
+            // update where the terms cancel (the RoMa GP's K_bb: 3.8e-4 from the float64 solve, against
+            // 5.9e-5 with sums by chunk; k1_many_gp_probe.py)
+            float part[SUB_TM][4] = {};
+            tile_product(As[j & 1], Ys[j & 1], part, tx, ty);
+#pragma unroll
+            for (int r = 0; r < SUB_TM; ++r)
+#pragma unroll
+                for (int q = 0; q < 4; ++q) acc[r][q] += part[r][q];
             __syncthreads();  // chunk j's buffers are staged again at j + 2
         }
         cp_async_wait<0>();

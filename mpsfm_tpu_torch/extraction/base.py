@@ -12,10 +12,11 @@ The caches are HDF5 files (``cache_format: h5``, the JAX package's, which
 either package reads) or directory stores (``cache_format: npy``, for a
 host without h5py); utils.io.open_store picks by the path's suffix. The
 detectors (classical, SuperPoint), the matchers (the mutual NN, LightGlue,
-the dense NCC flow), NetVLAD retrieval, the Metric3Dv2 priors and the sky
-masks run on ``device``. Not ported yet, and raising: the neural dense
-matchers and their two-view depth, and the other neural priors (DSINE,
-DepthPro, DepthAnythingV2, vit_mono; ROADMAP queue 1 item 6).
+the dense NCC flow and RoMa), NetVLAD retrieval, the Metric3Dv2 and DSINE
+priors and the sky masks run on ``device``. Not ported yet, and raising:
+the other neural dense matchers (MASt3R, the two-view and warp classes)
+and their two-view depth, and the other neural priors (DepthPro,
+DepthAnythingV2, vit_mono; ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -43,14 +44,19 @@ from mpsfm_tpu_torch.utils.workqueue import WorkQueue
 FEATURE_MODELS = {"superpoint": SuperPoint, "classical": ClassicalFeatures}
 MATCHER_MODELS = {"lightglue": LightGlue, "nn": MutualNNMatcher}
 NEURAL = "not ported yet (ROADMAP queue 1 item 6: the rest of the neural extraction)"
-NEURAL_DENSE = ("two_view", "mast3r_class", "mast3r", "warp", "roma_class", "roma")
+NEURAL_DENSE = ("two_view", "mast3r_class", "mast3r", "warp", "roma_class")
 
 
 def get_dense_matcher(name: str, conf=None, device="cuda"):
-    """Dense matcher registry: the classical NCC flow; the JAX package's
-    neural ones (MASt3R-class, RoMa-class) are not ported yet."""
+    """Dense matcher registry: the classical NCC flow and RoMa
+    (nets/roma.py, the official checkpoint naming); the JAX package's other
+    neural ones (MASt3R, the two-view and warp classes) are not ported yet."""
     if name in ("dense_ncc", "ncc"):
         return DenseNCCMatcher(conf, device=device)
+    if name == "roma":
+        from mpsfm_tpu_torch.extraction.nets.roma import RomaMatcher
+
+        return RomaMatcher(conf, device=device)
     if name in NEURAL_DENSE:
         raise NotImplementedError(f"dense matcher {name!r}: {NEURAL}")
     raise ValueError(f"unknown dense matcher '{name}'")
@@ -336,10 +342,10 @@ class Extraction(BaseClass):
 
         The JAX package prefers a two-view depth predictor (MASt3R's
         pointmap depth) for images without sensor depth; none is ported
-        (ROADMAP queue 1 item 6) and the NCC flow has none, so each image
-        takes its depth from the prior backend, sensor depth where the
-        scene has it, at a fixed 1% relative uncertainty (the fork's
-        measured-depth calibration)."""
+        (ROADMAP queue 1 item 6) and neither the NCC flow nor RoMa has one,
+        so each image takes its depth from the prior backend, sensor depth
+        where the scene has it, at a fixed 1% relative uncertainty (the
+        fork's measured-depth calibration)."""
         path = self.paths["pair_depth"]
         existing = io.pair_keys(path) if path.exists() and "d" not in self.extract else set()
         for name0, name1 in pairs:

@@ -1,7 +1,7 @@
 """The resize and layer helpers of mpsfm_tpu/extraction/nets/depth_anything.py
-that Metric3Dv2 imports (its :50-131), as the port's own copy. Tensors are
-channels last (B, H, W, C), as in the JAX package; the DepthAnythingV2
-class itself is not ported yet (ROADMAP queue 1 item 6).
+that Metric3Dv2, DSINE and RoMa import (its :50-131), as the port's own
+copy. Tensors are channels last (B, H, W, C), as in the JAX package; the
+DepthAnythingV2 class itself is not ported yet (ROADMAP queue 1 item 6).
 
 Every resize is a static separable interpolation matrix (one contraction
 a side) replicating torch.nn.functional.interpolate's coordinates,
@@ -13,6 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def _cubic_kernel(x, a=-0.75):
@@ -81,19 +84,21 @@ def _same_pad(n, k, s):
     return total // 2, total - total // 2
 
 
-def _conv(x, w_oihw, b=None, stride=1, pad="SAME"):
-    """NHWC conv with a torch-layout (O,I,kh,kw) kernel, XLA's 'SAME' or
-    'VALID' padding."""
+def _conv(x, w_oihw, b=None, stride=1, pad="SAME", groups=1):
+    """NHWC conv with a torch-layout (O,I/groups,kh,kw) kernel, XLA's 'SAME'
+    or 'VALID' padding. 'SAME' puts the odd pixel of a padding on the bottom
+    and right (a stride-2 3×3 conv of an even side pads (0, 1)), where
+    torch's padding=1 would pad both sides and shift the map."""
     y = x.permute(0, 3, 1, 2)
     kh, kw = w_oihw.shape[2:]
     if pad == "SAME":
         (t, bo), (lft, r) = _same_pad(y.shape[2], kh, stride), _same_pad(y.shape[3], kw, stride)
         if t == bo and lft == r:
-            y = F.conv2d(y, w_oihw, b, stride, padding=(t, lft))
+            y = F.conv2d(y, w_oihw, b, stride, padding=(t, lft), groups=groups)
         else:
-            y = F.conv2d(F.pad(y, (lft, r, t, bo)), w_oihw, b, stride)
+            y = F.conv2d(F.pad(y, (lft, r, t, bo)), w_oihw, b, stride, groups=groups)
     else:
-        y = F.conv2d(y, w_oihw, b, stride)
+        y = F.conv2d(y, w_oihw, b, stride, groups=groups)
     return y.permute(0, 2, 3, 1)
 
 

@@ -7,12 +7,14 @@ mpsfm_tpu/extraction/priors.py).
 * ``oracle``: ground-truth maps given by the caller (tests);
 * ``metric3dv2-{small,large,giant2}``, their ``-fc`` (flip-consistency)
   variants and ``metric3dv2-normals``: Metric3Dv2 (nets/metric3d.py) on the
-  device, once ``conf.weights_path`` names a checkpoint (a file, or a
-  registry name whose file is in $MPSFM_WEIGHTS_DIR or ./local/weights);
-  without one, calling the backend raises MissingWeightsError.
+  device; ``dsine*`` (``dsine-kappa``, ``dsine-kappa-fc``): DSINE's normals
+  (nets/dsine.py) on the device. Each once ``conf.weights_path`` names a
+  checkpoint (a file, or a registry name whose file is in
+  $MPSFM_WEIGHTS_DIR or ./local/weights); without one, calling the backend
+  raises MissingWeightsError.
 
-The other neural backends (DepthPro, DepthAnythingV2, DSINE, the ViT-DPT
-net ``vit_mono``) are not ported yet: asking for one raises.
+The other neural backends (DepthPro, DepthAnythingV2, the ViT-DPT net
+``vit_mono``) are not ported yet: asking for one raises.
 """
 
 from __future__ import annotations
@@ -123,7 +125,8 @@ class SyntheticOracleBackend:
 
 # Architecture presets of the named neural backends: metric3dv2-* route to the exact Metric3Dv2
 # (nets/metric3d.py: giant2 ViT-g 1536x40, large ViT-L 1024x24, small ViT-S 384x12). The JAX package's
-# entries of the backends not ported yet (depthpro, depthanythingv2-outdoor, dsine) are kept for parity.
+# entries of the backends not ported yet (depthpro, depthanythingv2-outdoor) are kept for parity, and so is
+# dsine's, whose keys DSINE does not read.
 ARCH_PRESETS = {
     "metric3dv2-giant2": {"encoder": "vit_giant2_reg"},
     # normals-only variant (reference defaults/*: normals from the default metric3dv2, its depth not kept)
@@ -137,9 +140,9 @@ ARCH_PRESETS = {
 
 
 class NeuralDepthBackend:
-    """Named neural depth/normal backends: the metric3dv2 family. Per-name
-    uncertainty calibrations and arch presets are applied; the ``-fc``
-    variants add the flipped pass. The net activates once
+    """Named neural depth/normal backends: the metric3dv2 family and DSINE.
+    Per-name uncertainty calibrations and arch presets are applied; the
+    ``-fc`` variants add the flipped pass. The net activates once
     ``conf.weights_path`` is a file; without it, calling the backend
     raises MissingWeightsError (the repository ships no checkpoint).
     Replaces the reference wrappers at
@@ -151,7 +154,7 @@ class NeuralDepthBackend:
         self.name = name
         conf = dict(conf or {})
         base = name[:-3] if name.endswith("-fc") else name
-        if not base.startswith("metric3dv2"):
+        if not base.startswith(("metric3dv2", "dsine")):
             raise NotImplementedError(f"prior backend {name!r}: {NOT_PORTED}")
         for k, v in ARCH_PRESETS.get(base, {}).items():
             conf.setdefault(k, v)
@@ -173,7 +176,8 @@ class NeuralDepthBackend:
             else:
                 if Path(wp).exists():
                     conf["weights_path"] = wp
-                    self.backend = _Metric3DBackend(conf, device)
+                    backend = _DSINEBackend if base.startswith("dsine") else _Metric3DBackend
+                    self.backend = backend(conf, device)
                 else:
                     self._missing = f" weights_path {wp!r} is not a file."
 
@@ -217,6 +221,32 @@ class _Metric3DBackend:
             })
         if self.normals_only:
             out = {k: v for k, v in out.items() if k.startswith("normals")}
+        return out
+
+
+class _DSINEBackend:
+    """DSINE -> surface-normal priors: kappa -> angular variance and the BNI
+    coordinates of the reference wrapper (normals/dsine.py:26-141), plus the
+    flipped second pass for the ``-fc`` return types (:96-99), as
+    ``normals2``. Normals only: no depth."""
+
+    def __init__(self, conf, device="cuda"):
+        from mpsfm_tpu_torch.extraction.nets.dsine import DSINE
+
+        self.net = DSINE(conf, device=device)
+        if self.net.params is None:
+            self.net.init_random(0)
+        self.flip_consistency = bool(conf.get("flip_consistency", False))
+
+    def __call__(self, image_rgb, intrinsics=None, **kw):
+        if intrinsics is None:
+            h, w = np.asarray(image_rgb).shape[:2]
+            intrinsics = (max(h, w) * 1.2, max(h, w) * 1.2, w / 2, h / 2)
+        out = self.net.infer_image(image_rgb, intrinsics)
+        if self.flip_consistency:
+            out2 = self.net.infer_image(image_rgb, intrinsics, flip=True)
+            out["normals2"] = out2["normals"]
+            out["normals2_variance"] = out2["normals_variance"]
         return out
 
 

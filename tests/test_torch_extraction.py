@@ -325,14 +325,29 @@ def test_extraction_caches_read_across_packages(scene_dir, tmp_path, monkeypatch
 
 
 def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
+    """What is not ported raises naming item 6. DSINE and RoMa are ported:
+    without weights, dsine-kappa-fc normals fall back to the depth-derived
+    normals (the JAX package's store: no normals2) and the roma matcher
+    raises MissingWeightsError naming both of its files."""
     parser = TParser(scene_dir)
     for conf, call, what in (
-        ({"depth": "measured", "normals": "dsine-kappa-fc"}, lambda ex: ex.extract_mono(), "item 6"),
         ({"depth": "vit_mono"}, lambda ex: ex.extract_mono(), "item 6"),
-        ({"dense_matcher": "roma"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
         ({"dense_matcher": "mast3r"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
         ({"depth": "depthanythingv2-outdoor"}, lambda ex: ex.extract_mono(), "item 6"),
     ):
         with pytest.raises(NotImplementedError, match=what):
             call(TExtraction(conf, parser, tmp_path / "c", device="cpu"))
+    conf = {"depth": "measured", "normals": "dsine-kappa-fc", "normals_conf": {"weights_path": None}}
+    tex = TExtraction(conf, parser, tmp_path / "dsine", device="cpu")
+    jex = JExtraction(conf, JParser(scene_dir), tmp_path / "dsine-jax")
+    tex.extract_mono()
+    jex.extract_mono()
+    for name in parser.image_names():
+        got, want = tio.get_mono_map(tex.paths["depth"], name), jio.get_mono_map(jex.paths["depth"], name)
+        assert got.keys() == want.keys() and "normals" in got and "normals2" not in got
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-12, atol=1e-12, err_msg=k)
+    with pytest.raises(tpriors.MissingWeightsError, match="roma_outdoor.pth.*dinov2_vitl14_pretrain.pth"):
+        TExtraction({"dense_matcher": "roma"}, parser, tmp_path / "c", device="cpu").extract_dense_matches(
+            [("im00.png", "im01.png")])
     assert tbase.Extraction({}, parser, tmp_path / "c", device="cpu").load_mask("im00.png") is None

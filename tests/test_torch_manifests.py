@@ -18,7 +18,8 @@ from mpsfm_tpu_torch import convert
 from mpsfm_tpu_torch.extraction import manifest as tman
 from mpsfm_tpu_torch.extraction import weights as tweights
 
-PORTED = ["superpoint", "lightglue", "netvlad", "metric3dv2-small", "metric3dv2-large", "metric3dv2-giant2"]
+PORTED = ["superpoint", "lightglue", "netvlad", "metric3dv2-small", "metric3dv2-large", "metric3dv2-giant2", "dsine",
+          "roma-outdoor", "roma-dinov2"]
 
 
 @pytest.mark.parametrize("name", PORTED)

@@ -22,8 +22,10 @@ packages.
     port registers the JAX run's images in its order with its points.
 (c) custom.yaml and the three sp-lg_m3dv2*.yaml configs build the port's
     SuperPoint, LightGlue and Metric3Dv2 and no longer raise
-    NotImplementedError; custom.yaml maps the scene; paper/sp-lg_m3dv2.yaml
-    still raises, naming item 6 (DSINE normals).
+    NotImplementedError; custom.yaml maps the scene; paper/sp-lg_m3dv2.yaml's
+    extract_mono (Metric3Dv2 with DSINE-kappa-fc normals, normals2 too) and
+    sp-roma-dense_m3dv2.yaml's dense and anchored matching (RoMa) at tiny
+    widths give the JAX package's stores.
 (d) chip_smoke's neural extraction phase rehearsed on the CPU at its small
     size.
 """
@@ -40,7 +42,11 @@ import chip_smoke
 import jax
 from mpsfm_tpu.extraction.features.superpoint import SuperPoint as JSuperPoint
 from mpsfm_tpu.extraction.matchers.lightglue import LightGlue as JLightGlue
+from mpsfm_tpu.datasets.simple import SimpleParser as JParser
+from mpsfm_tpu.extraction.base import Extraction as JExtraction
+from mpsfm_tpu.extraction.nets.dsine import DSINE as JDSINE
 from mpsfm_tpu.extraction.nets.metric3d import Metric3Dv2 as JMetric3Dv2
+from mpsfm_tpu.extraction.nets.roma import RomaNet as JRomaNet
 from mpsfm_tpu_torch import convert
 from mpsfm_tpu_torch import pipeline as tpipeline
 from mpsfm_tpu_torch.config import load_cfg
@@ -54,6 +60,8 @@ from mpsfm_tpu_torch.scene import correspondences
 from mpsfm_tpu_torch.utils import io as tio
 
 from synthetic import PlaneScene, render_scene_dir
+from test_dsine import TINY as DSINE_TINY
+from test_roma import TINY as ROMA_TINY
 from test_torch_metric3d import TINY
 from test_torch_netvlad import _fake_mat
 from test_torch_pipeline_dense import merged, run_jax_modes
@@ -245,12 +253,87 @@ def test_configs_build_the_ports_models(jax_run, tmp_path, name):
                                                   "giant2": "vit_giant2_reg"}[size]
 
 
+def assert_mono_stores_equal(jpath, tpath, names):
+    for name in names:
+        mj, mt = tio.get_mono_map(jpath, name), tio.get_mono_map(tpath, name)
+        assert mj.keys() == mt.keys(), name
+        for k in mj:
+            x, y = np.asarray(mj[k]), np.asarray(mt[k])
+            if x.dtype == bool:
+                np.testing.assert_array_equal(x, y)
+            else:
+                assert np.abs(x - y).max() <= REL * np.abs(x).max(), (name, k)
+
+
 def test_paper_config_still_raises_naming_dsine(jax_run, tmp_path):
+    """paper/sp-lg_m3dv2.yaml's extract_mono, which raised naming item 6
+    before DSINE was ported, now runs on the CPU: Metric3Dv2 (the config's
+    giant2 cut to TINY) with DSINE-kappa-fc normals (tests/test_dsine.py's
+    TINY, the JAX package's init_random(0) draw as dsine.pth) and its
+    flipped pass. The store equals the JAX package's extract_mono of the
+    same config, normals2 included, within 1e-4 relative."""
     cfg = load_cfg(ROOT / "configs" / "paper" / "sp-lg_m3dv2.yaml")
-    assert cfg.extractors.normals == "dsine-kappa-fc"
-    ex = TExtraction(cfg.extractors, TParser(jax_run["data"]), tmp_path / "c", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ex.extract_mono()
+    assert cfg.extractors.normals == "dsine-kappa-fc" and cfg.image_priors.normals.flip_consistency
+    j = JDSINE(DSINE_TINY)
+    j.init_random(0)
+    torch.save(convert.dsine_state_dict({k: np.asarray(v) for k, v in j.params.items()}), tmp_path / "dsine.pth")
+    tiny = {k: v for k, v in TINY.items() if k != "encoder"}
+    cfg = cfg.merged({"extractors": {"depth_conf": {"weights_path": str(jax_run["ckpt"]["depth"]), **tiny},
+                                     "normals_conf": {"weights_path": str(tmp_path / "dsine.pth"), **DSINE_TINY}}})
+    ex_conf = json.loads(json.dumps(cfg.extractors))
+    tex = TExtraction(ex_conf, TParser(jax_run["data"]), tmp_path / "port", device="cpu")
+    tex.extract_mono()
+    jex = JExtraction(ex_conf, JParser(jax_run["data"]), tmp_path / "jax")
+    jex.extract_mono()
+    names = TParser(jax_run["data"]).image_names()
+    assert {"depth", "normals", "normals2", "normals2_variance"} <= set(tio.get_mono_map(tex.paths["depth"], names[0]))
+    assert_mono_stores_equal(jex.paths["depth"], tex.paths["depth"], names)
+
+
+def test_roma_dense_extraction_equals_jax(jax_run, tmp_path):
+    """sp-roma-dense_m3dv2.yaml's matching at tests/test_roma.py's TINY
+    width (the JAX package's init_random(0) draw as roma_outdoor.pth and
+    dinov2_vitl14_pretrain.pth) over the JAX run's pairs and SuperPoint
+    features: the dense pairs (keypoints and certainties as sets) and the
+    anchored matches equal the JAX package's Extraction's."""
+    cfg = load_cfg(ROOT / "configs" / "sp-roma-dense_m3dv2.yaml")
+    assert cfg.matches_mode == "sparse+dense" and cfg.extractors.dense_matcher == "roma"
+    j = JRomaNet(ROMA_TINY)
+    j.init_random(0)
+    outdoor, dinov2 = convert.roma_state_dicts({k: np.asarray(v) for k, v in j.params.items()})
+    torch.save(outdoor, tmp_path / "roma_outdoor.pth")
+    torch.save(dinov2, tmp_path / "dinov2_vitl14_pretrain.pth")
+    cfg = cfg.merged({"extractors": {"dense_matcher_conf": {
+        **ROMA_TINY, "weights_path": str(tmp_path / "roma_outdoor.pth"),
+        "dinov2_weights_path": str(tmp_path / "dinov2_vitl14_pretrain.pth")}}})
+    ex_conf = json.loads(json.dumps(cfg.extractors))
+    stores = {}
+    for pkg in ("jax", "port"):
+        cache = tmp_path / pkg
+        cache.mkdir()
+        for f in ("feats-superpoint.h5", "pairs.txt"):
+            shutil.copy(jax_run["cache"] / f, cache / f)
+        if pkg == "jax":
+            ex = JExtraction(ex_conf, JParser(jax_run["data"]), cache)
+        else:
+            ex = TExtraction(ex_conf, TParser(jax_run["data"]), cache, device="cpu")
+        pairs = tio.read_pairs(cache / "pairs.txt")
+        ex.extract_dense_matches(pairs)
+        stores[pkg] = (ex.paths["dpairs"], ex.extract_matches_dense_anchored(pairs))
+    assert stores["port"][0].name == "dense-roma.h5" and stores["port"][1].name == "matches-roma-anchored.h5"
+    dense = anchored = 0
+    for n0, n1 in pairs:
+        (k0j, k1j, cj), (k0t, k1t, ct) = (tio.get_dense_pair(stores[p][0], n0, n1) for p in ("jax", "port"))
+        ij, it = np.lexsort(k0j.T[::-1]), np.lexsort(k0t.T[::-1])
+        assert len(ij) == len(it) > 0, (n0, n1)
+        np.testing.assert_array_equal(k0j[ij], k0t[it])
+        assert np.abs(k1j[ij] - k1t[it]).max() <= 1e-3 and np.abs(cj[ij] - ct[it]).max() <= 1e-5
+        (mj, sj), (mt, st) = (tio.get_matches(stores[p][1], n0, n1) for p in ("jax", "port"))
+        oj, ot = np.lexsort(mj.T[::-1]), np.lexsort(mt.T[::-1])
+        np.testing.assert_array_equal(mj[oj], mt[ot])
+        assert np.abs(sj[oj] - st[ot]).max() <= 1e-5
+        dense, anchored = dense + len(ij), anchored + len(mt)
+    assert dense > 50 and anchored > 0
 
 
 def test_chip_smoke_neural_phase_on_the_cpu():
