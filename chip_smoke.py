@@ -1421,6 +1421,12 @@ def k2_pcg_check(what, args, active):
     print(f"K2 pcg ({what}): max|kernel - plain| = {err:.3e} (tolerance {K2_TOL}); "
           f"iterations kernel {iters.cpu().tolist()} plain {iters_r.cpu().tolist()}")
     if not (err <= K2_TOL and gap <= 1):
+        # for the record, not a rule: the float64 run of the plain version on the same inputs and tolerance
+        st, b, dg, z, budget, tol = args
+        x64, it64 = bini_fused.pcg_plain(bini_fused.Stencil(*(t.double() for t in st)), b.double(), dg.double(),
+                                         z.double(), budget, tol, active)
+        print(f"K2 pcg ({what}): the float64 plain run takes iterations {it64.cpu().tolist()}; from it the kernel "
+              f"{float((x.double() - x64).abs().max()):.3e}, the plain version {float((xr.double() - x64).abs().max()):.3e}")
         raise AssertionError(f"K2 PCG disagrees with its plain version ({what}): {err}, iterations {gap} apart")
     return x, iters, err, xr, iters_r
 
@@ -4363,10 +4369,11 @@ ROMA_DENSE_CONF = merge_conf(PAPER_BASE, {"matches_mode": "sparse+dense", "extra
 # 640×480), RoMa (roma_outdoor.pth + dinov2_vitl14_pretrain.pth, ViT-L/14) at its 672² working resolution on each
 # pair of them. Card against CPU cut: DSINE-B5 on one image cut to cpu_hw (a quarter of the pixels), RoMa on one
 # pair at cpu_resolution (16² coarse tokens, K = 256 for the GP, instead of 48²), so that the CPU's forwards stay
-# a small share of the phase. "small": a rehearsal on the CPU at tests/test_dsine.py's and tests/test_roma.py's
-# TINY widths.
+# a small share of the phase. The reconstructs (d) on the render's first pipeline_images images (cut from 5 since
+# slice 15, so that the whole script stays within its time). "small": a rehearsal on the CPU at tests/test_dsine.py's
+# and tests/test_roma.py's TINY widths.
 PAPER_SIZES = {
-    "full": dict(neural="full", dsine={}, roma={}, cpu_hw=(240, 320), cpu_resolution=224),
+    "full": dict(neural="full", dsine={}, roma={}, cpu_hw=(240, 320), cpu_resolution=224, pipeline_images=3),
     "small": dict(neural="small",
                   dsine=dict(stages=((1, 8, 1, 1, 3), (6, 12, 1, 2, 3), (6, 16, 1, 2, 5), (6, 16, 1, 2, 3),
                                      (6, 24, 2, 2, 5)), stem=8, head=32, decoder_nf=16, feature_dim=8,
@@ -4377,7 +4384,7 @@ PAPER_SIZES = {
                             scales=(("16", 32, 8, 4, 2, 1, True), ("8", 12, 8, 4, 1, 1, True),
                                     ("4", 8, 6, 2, 0, 1, True), ("2", 6, 4, 2, 0, 1, True),
                                     ("1", 4, 3, 2, 0, 1, False)), resolution=112),
-                  cpu_hw=(120, 160), cpu_resolution=224),
+                  cpu_hw=(120, 160), cpu_resolution=224, pipeline_images=3),
 }
 # card against CPU: DSINE's normals within M3D_REL (absolute: unit vectors) and its variance within M3D_REL of its
 # largest value (float32's summation order through the encoder's 39 blocks and the 5 GRU steps); RoMa's flow within
@@ -4637,9 +4644,9 @@ def paper_conf(base, npaths, ppaths, size):
     return conf
 
 
-def paper_pipeline(dev, counted, what, conf, data_dir):
-    """(d) The port's reconstruct under `conf` over a copy of the render, the
-    launch counts at 0 just before. Held: it reaches its outputs (the text
+def paper_pipeline(dev, counted, what, conf, data_dir, n_images):
+    """(d) The port's reconstruct under `conf` over a copy of the render's
+    first n_images images, the launch counts at 0 just before. Held: it reaches its outputs (the text
     model written and read back equal to the map); the DSINE or RoMa nets it
     builds hold their tensors on `dev` and run their forwards there; the
     depth store keeps DSINE's normals2 (the flip-consistency prior's input)
@@ -4657,6 +4664,9 @@ def paper_pipeline(dev, counted, what, conf, data_dir):
 
     data = Path(data_dir).parent / what
     shutil.copytree(data_dir, data)
+    for img in sorted((data / "images").iterdir())[n_images:]:
+        img.unlink()
+        (data / "depth" / (img.stem + ".npy")).unlink()
     TIMERS.reset()
     for k in counted.values():
         k.launches = 0
@@ -4725,7 +4735,8 @@ def paper_nets_phase(dev, counted, size="full"):
     (paper_nets_full_width), (b) both card against CPU, cut
     (paper_nets_card_vs_cpu), (c) K1 many at the GP's K_bb (k1_many_gp),
     (d) the port's reconstruct under PAPER_LG_CONF and under
-    ROMA_DENSE_CONF (paper_pipeline). size: "full", or "small" for a
+    ROMA_DENSE_CONF on the render's first pipeline_images images
+    (paper_pipeline). size: "full", or "small" for a
     rehearsal on the CPU (counted {}; no K1 many check). Returns (summary,
     {run: launches}, the K1 many row or None)."""
     import tempfile
@@ -4770,9 +4781,454 @@ def paper_nets_phase(dev, counted, size="full"):
         runs, launches = {}, {}
         for what, base in (("paper sp-lg_m3dv2", PAPER_LG_CONF), ("sp-roma-dense_m3dv2", ROMA_DENSE_CONF)):
             runs[what], launches[what] = paper_pipeline(dev, counted, what, paper_conf(base, npaths, ppaths, size),
-                                                        data)
+                                                        data, size["pipeline_images"])
     print(f"paper nets phase: {time.perf_counter() - t0:.1f} s wall")
     return dict(full=full, card_vs_cpu=vs, pipelines=runs), launches, row
+
+
+# ---- the two-view nets (slice 15): MASt3R, the two-view and warp classes, DepthAnythingV2 ----
+
+# configs/sp-mast3r.yaml, sp-mast3r-dense.yaml and sp-lg_dav2.yaml as the port loads them, with the cuts of the
+# earlier neural phases: the directory store, dist_ba off, and the Metric3Dv2 normals (metric3dv2-normals, giant2)
+# cut to Metric3Dv2-small
+TWO_VIEW_CUTS = {"extractors": {"normals_conf": {"encoder": "vit_small_reg"}}, "cache_format": "npy",
+                 "mapper": {"ba": {"dist_ba": "off"}}}
+SP_MAST3R_CONF = merge_conf({
+    "image_priors": {"depth": {"prior_std_multiplier": 0.862}},
+    "extractors": {"normals": "metric3dv2-normals", "features": "superpoint", "dense_matcher": "mast3r",
+                   "pairs_type": "retrieval", "n_retrieval": 20,
+                   "feature_conf": {"weights_path": None, "max_keypoints": 6000, "nms_radius": 4, "resize_max": 1600},
+                   "dense_matcher_conf": {"weights_path": None, "mode": "sparse"}},
+    "matches_mode": "sparse+depth+cache"}, TWO_VIEW_CUTS)
+SP_MAST3R_DENSE_CONF = merge_conf(SP_MAST3R_CONF, {"matches_mode": "sparse+dense+depth",
+                                                   "extractors": {"dense_matcher_conf": {"mode": "sparse+dense"}}})
+SP_LG_DAV2_CONF = merge_conf({
+    "matches_mode": "sparse",
+    "extractors": {"features": "superpoint", "matcher": "lightglue", "depth": "depthanythingv2-outdoor",
+                   "pairs_type": "retrieval", "n_retrieval": 20,
+                   "feature_conf": {"weights_path": None, "max_keypoints": 6000, "nms_radius": 4, "resize_max": 1600},
+                   "matcher_conf": {"weights_path": None}, "normals": "metric3dv2-normals"},
+    "image_priors": {"depth": {"depth_uncertainty": 0.079, "prior_std_multiplier": 3.33,
+                               "prior_uncertainty": False}}}, TWO_VIEW_CUTS)
+# MASt3R at its official width (ViT-L encoder + base decoder) and DepthAnythingV2-vitl (metric, input 518) on the
+# neural phase's render (5 images of 640×480: 30×40 patches, 1200 tokens a view), their checkpoints seeded on the
+# card in the official layouts. Card against CPU cut: MASt3R at its official widths with 2 encoder and 4 decoder
+# blocks on a 128×160 pair, TwoViewNet and WarpNet at their default widths on a 240×320 pair, DepthAnythingV2 at
+# vitl's widths with 4 blocks at input 140 on one image. The reconstructs (d) on the render's first pipeline_images
+# images (3 pairs), so that the whole script stays within its time. "small": a rehearsal on the CPU at tests' tiny
+# widths.
+TWO_VIEW_SIZES = {
+    "full": dict(neural="full", mast3r={}, da2={}, cpu_mast3r=dict(enc_depth=2, dec_depth=4), cpu_hw=(128, 160),
+                 tv_hw=(240, 320), cpu_da2=dict(depth=4, hooks=(0, 1, 2, 3), input_size=140), pipeline_images=3),
+    "small": dict(neural="small",
+                  mast3r=dict(enc_dim=32, enc_depth=2, enc_heads=2, dec_dim=24, dec_depth=4, dec_heads=2, patch=16,
+                              desc_dim=6, rope_freq=100.0, dpt_layer_dims=(8, 12, 16, 16), dpt_feature_dim=16,
+                              mlp_hidden_factor=1.0),
+                  da2=dict(encoder="vits", dim=32, depth=4, heads=2, hooks=(0, 1, 2, 3), features=16,
+                           out_channels=(8, 12, 16, 16), input_size=70),
+                  cpu_mast3r={}, cpu_hw=(64, 96), tv_hw=(64, 96), cpu_da2={}, pipeline_images=3),
+}
+# card against CPU: each output within TWO_VIEW_REL of its largest magnitude (float32's summation order through the
+# blocks); MASt3R's forward launches K4 MAST3R_K4 times at the official depth (24 encoder blocks over both views,
+# 12 self- and 12 cross-attentions in each decoder stack)
+TWO_VIEW_REL = 1e-3
+MAST3R_K4 = 72
+
+
+def two_view_checkpoints(d, size, dev, seed=SEED + 30):
+    """MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth (the naver
+    wrapper format, {"model": sd}) and depth_anything_v2_metric_vkitti_vitl.pth
+    in the official layouts (seeded_state_dict, drawn on `dev`) at the size's
+    widths: at full width the pinned manifests' names and shapes, at small
+    those of the port's nets at the tiny configs. Returns {role: path} and
+    the seconds it took."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.manifest import load_manifest
+    from mpsfm_tpu_torch.extraction.nets import depth_anything, mast3r
+
+    t = time.perf_counter()
+    d.mkdir(parents=True, exist_ok=True)
+    if size["neural"] == "full":
+        m_shapes, d_shapes = load_manifest("mast3r"), load_manifest("depthanythingv2-vitl")
+    else:
+        m_shapes = {n: s for n, s, _, _ in mast3r.param_specs(mast3r.Mast3rNet(size["mast3r"], device="cpu").conf)}
+        d_shapes = {n: s for n, s, _, _ in depth_anything.param_specs(
+            depth_anything.DepthAnythingV2(size["da2"], device="cpu").conf)}
+    paths = {"mast3r": d / mast3r.FILE, "da2": d / "depth_anything_v2_metric_vkitti_vitl.pth"}
+    torch.save({"model": seeded_state_dict(m_shapes, seed, dev)}, paths["mast3r"])
+    torch.save(seeded_state_dict(d_shapes, seed + 1, dev), paths["da2"])
+    return paths, time.perf_counter() - t
+
+
+@contextlib.contextmanager
+def mast3r_attention_spy():
+    """Keep the arguments of MASt3R's first encoder self-attention and first
+    decoder cross-attention (calls 0 and 25 of a forward at the official
+    depth: 24 encoder calls, then each decoder block's self and cross) and
+    count forwards. Yields (kept, forwards)."""
+    from mpsfm_tpu_torch.extraction.nets import mast3r
+
+    import torch
+
+    kept, calls, forwards = {}, [0], [0]
+    orig_att, orig_fwd = mast3r.multi_head, mast3r.Mast3rNet.forward
+
+    def att(q, k, v):
+        which = {0: "encoder", 25: "decoder_cross"}.get(calls[0])
+        if which:  # attention's arguments as multi_head passes them
+            kept.setdefault(which, (q, k, v, torch.ones(k.shape[:2], dtype=torch.bool, device=q.device),
+                                    q.shape[-1] ** -0.5))
+        calls[0] += 1
+        return orig_att(q, k, v)
+
+    def fwd(self, *a, **k):
+        forwards[0] += 1
+        calls[0] = 0
+        return orig_fwd(self, *a, **k)
+
+    mast3r.multi_head, mast3r.Mast3rNet.forward = att, fwd
+    try:
+        yield kept, forwards
+    finally:
+        mast3r.multi_head, mast3r.Mast3rNet.forward = orig_att, orig_fwd
+
+
+def two_view_full_width(dev, paths, size, grays, rgbs):
+    """(a) MASt3R at full width on `dev`, loaded through the port's loader
+    (manifest-checked at the official size), on every pair of the gray
+    images as Extraction hands them: ms a pair by stage (the encoder, the
+    decoders, the DPT heads, the local-feature heads, the reciprocal NN),
+    matches a pair, peak memory, K4's float32 launches a forward; its first
+    encoder and cross-attention arguments kept. (b) DepthAnythingV2-vitl
+    (metric) on every image. Returns the summary and the kept arguments."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.matchers import attention as att
+    from mpsfm_tpu_torch.extraction.nets.depth_anything import DepthAnythingV2
+    from mpsfm_tpu_torch.extraction.nets.mast3r import Mast3rMatcher
+
+    out = {}
+    m = Mast3rMatcher({**size["mast3r"], "weights_path": str(paths["mast3r"])}, device=dev)
+    out["mast3r_params"] = sum(v.numel() for v in m.net.params.values())
+    m(grays[0], grays[1])  # warm-up
+    sync(dev)
+    pairs = [(a, b) for a in range(len(grays)) for b in range(a + 1, len(grays))]
+    times = {}
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    n0 = att.KERNEL.launches
+    with mast3r_attention_spy() as (kept, forwards):
+        t = time.perf_counter()
+        res = [m(grays[a], grays[b], times=times) for a, b in pairs]
+        sync(dev)
+        wall = time.perf_counter() - t
+    out["k4_launches"] = att.KERNEL.launches - n0
+    out["forwards"] = forwards[0]
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+    out["mast3r_s_per_pair"] = wall / len(pairs)
+    out["mast3r_stage_s"] = {k: v / len(pairs) for k, v in times.items()}
+    out["mast3r_matches"] = [len(r["certainty"]) for r in res]
+    out["tokens"] = (grays[0].shape[0] // 16) * (grays[0].shape[1] // 16)
+    out["mast3r_ok"] = all(np.isfinite(r["keypoints0"]).all() and np.isfinite(r["certainty"]).all() for r in res)
+    del m
+    net = DepthAnythingV2({**size["da2"], "depth_estimation_type": "metric", "max_depth": 80.0,
+                           "weights_path": str(paths["da2"])}, device=dev)
+    out["da2_params"] = sum(v.numel() for v in net.params.values())
+    net.infer_image(rgbs[0])  # warm-up
+    sync(dev)
+    n0 = att.KERNEL.launches
+    t = time.perf_counter()
+    depths = [net.infer_image(im) for im in rgbs]
+    sync(dev)
+    out["da2_s"] = (time.perf_counter() - t) / len(rgbs)
+    out["da2_k4_launches"] = att.KERNEL.launches - n0
+    out["da2_ok"] = all(d.shape == rgbs[0].shape[:2] and np.isfinite(d).all() and (d > 0).all() for d in depths)
+    del net
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, kept
+
+
+def rel_gap(a, b):
+    """max |a - b| over the largest |b| (numpy or tensors)."""
+    a, b = (np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64) for x in (a, b))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def two_view_card_vs_cpu(dev, size, rgbs):
+    """(c) The nets on `dev` and on the CPU on the same weights and inputs,
+    cut: MASt3R at its official widths with few blocks (size["cpu_mast3r"])
+    on a pair cut to cpu_hw (pointmaps, confidences, descriptors and their
+    confidences), TwoViewNet and WarpNet at their default widths (seeded
+    init, a pair at tv_hw), DepthAnythingV2 (vitl widths, few blocks) on one
+    image. Each output within TWO_VIEW_REL of its largest magnitude.
+    Returns the gaps and "ok"."""
+    import torch
+
+    from mpsfm_tpu_torch.extraction.nets import depth_anything, mast3r, two_view, warp
+    from mpsfm_tpu_torch.extraction.nets.depth_anything import _resize
+
+    cpu = torch.device("cpu")
+    h, w = size["cpu_hw"]
+    imgs = [_resize(torch.as_tensor(im, dtype=torch.float32)[None], (h, w))[0].numpy() for im in rgbs[:2]]
+    mconf = {**(size["mast3r"] or mast3r.MODEL_CONFIG), **size["cpu_mast3r"]}
+    shapes = {n: s for n, s, _, _ in mast3r.param_specs(mast3r.Mast3rNet(mconf, device="cpu").conf)}
+    sd = seeded_state_dict(shapes, SEED + 33, dev)
+    fwd = {}
+    for d in (dev, cpu):
+        net = mast3r.Mast3rNet(mconf, device=d)
+        net.params = net.params_from_torch_state_dict(sd)
+        xa, xb = two_view.padded_pair(*((two_view.prep_rgb(im) - mast3r.DUST3R_MEAN) / mast3r.DUST3R_STD
+                                        for im in imgs), 16, d)
+        with torch.no_grad():
+            fwd[d.type] = net.forward(xa, xb, (h // 16, w // 16))
+    gaps = {f"mast3r_{k}": rel_gap(fwd[dev.type][k], fwd["cpu"][k]) for k in fwd["cpu"]}
+    th, tw = size["tv_hw"]
+    pair = [_resize(torch.as_tensor(im, dtype=torch.float32)[None], (th, tw))[0].numpy() for im in rgbs[:2]]
+    tv, wp = {}, {}
+    for d in (dev, cpu):
+        tv[d.type] = two_view.TwoViewMatcher(device=d)._forward(*pair)[0]
+        wm = warp.WarpMatcher(device=d)
+        xa, xb = two_view.padded_pair(two_view.prep_rgb(pair[0]), two_view.prep_rgb(pair[1]), 32, d)
+        with torch.no_grad():
+            wp[d.type] = wm.net(xa, xb)
+    gaps.update({f"two_view_{k}": rel_gap(tv[dev.type][k], tv["cpu"][k]) for k in tv["cpu"]})
+    gaps["warp"], gaps["warp_certainty"] = (rel_gap(a, b) for a, b in zip(wp[dev.type], wp["cpu"]))
+    dconf = {**(size["da2"] or {}), **size["cpu_da2"], "depth_estimation_type": "metric", "max_depth": 80.0}
+    shapes = {n: s for n, s, _, _ in depth_anything.param_specs(depth_anything.DepthAnythingV2(dconf, device="cpu").conf)}
+    sd = seeded_state_dict(shapes, SEED + 34, dev)
+    depth = {}
+    for d in (dev, cpu):
+        net = depth_anything.DepthAnythingV2(dconf, device=d)
+        net.params = net.params_from_torch_state_dict(sd)
+        depth[d.type] = net.infer_image(rgbs[0])
+    gaps["da2_depth"] = rel_gap(depth[dev.type], depth["cpu"])
+    return dict(gaps=gaps, ok=all(v <= TWO_VIEW_REL for v in gaps.values()))
+
+
+@contextlib.contextmanager
+def two_view_seen():
+    """Record the MASt3R matchers and DepthAnythingV2 backends the pipeline
+    builds, the device of each of their forwards and the forwards' count.
+    Yields (models: role -> list, seen: role -> set of device types,
+    forwards: role -> count)."""
+    from mpsfm_tpu_torch.extraction import priors
+    from mpsfm_tpu_torch.extraction.nets import depth_anything, mast3r
+
+    roles = ("mast3r", "da2")
+    models, seen, forwards = ({r: [] for r in roles}, {r: set() for r in roles}, {r: 0 for r in roles})
+    orig = dict(matcher=mast3r.Mast3rMatcher, be=priors._DA2Backend, mfwd=mast3r.Mast3rNet.forward,
+                dfwd=depth_anything.DepthAnythingV2.forward)
+
+    def recorder(cls, role):
+        def make(*a, **k):
+            m = cls(*a, **k)
+            models[role].append(m)
+            return m
+
+        return make
+
+    def spy(fn, role):
+        def fwd(self, x, *a, **k):
+            seen[role].add(x.device.type)
+            forwards[role] += 1
+            return fn(self, x, *a, **k)
+
+        return fwd
+
+    mast3r.Mast3rMatcher, priors._DA2Backend = recorder(orig["matcher"], "mast3r"), recorder(orig["be"], "da2")
+    mast3r.Mast3rNet.forward = spy(orig["mfwd"], "mast3r")
+    depth_anything.DepthAnythingV2.forward = spy(orig["dfwd"], "da2")
+    try:
+        yield models, seen, forwards
+    finally:
+        mast3r.Mast3rMatcher, priors._DA2Backend = orig["matcher"], orig["be"]
+        mast3r.Mast3rNet.forward, depth_anything.DepthAnythingV2.forward = orig["mfwd"], orig["dfwd"]
+
+
+def two_view_conf(base, npaths, tpaths, size):
+    """A phase 16 conf with the checkpoints' paths: the neural phase's mapping
+    pair of SuperPoint and LightGlue, the Metric3Dv2-small normals, MASt3R
+    where the conf takes the mast3r dense matcher, DepthAnythingV2 where it
+    takes its depth."""
+    nsize = NEURAL_SIZES[size["neural"]]
+    conf = json.loads(json.dumps(base))
+    ex = conf["extractors"]
+    ex["feature_conf"].update(weights_path=str(npaths["features_mapping"]), **nsize["sp"])
+    if ex.get("matcher") == "lightglue":
+        ex["matcher_conf"].update(weights_path=str(npaths["matcher_mapping"]), **nsize["lg"])
+    ex["normals_conf"].update(weights_path=str(npaths["depth"]), **nsize["m3d_tiny"])
+    if ex.get("dense_matcher") == "mast3r":
+        ex["dense_matcher_conf"].update(weights_path=str(tpaths["mast3r"]), **size["mast3r"])
+    if ex.get("depth", "").startswith("depthanythingv2"):
+        ex["depth_conf"] = {"weights_path": str(tpaths["da2"]), **size["da2"]}
+    return conf
+
+
+def k4_per_forward(models):
+    """K4 launches a forward of each role's net: MASt3R enc_depth + 4 dec_depth
+    (each decoder block of both stacks a self- and a cross-attention),
+    DepthAnythingV2 one a block."""
+    out = {}
+    for m in models["mast3r"]:
+        out["mast3r"] = m.net.conf["enc_depth"] + 4 * m.net.conf["dec_depth"]
+    for b in models["da2"]:
+        out["da2"] = b.net.conf["depth"]
+    return out
+
+
+def two_view_pipeline(dev, counted, what, conf, data_dir, n_images):
+    """(d) The port's reconstruct under `conf` over a copy of the render's
+    first n_images images without their sensor depth, the launch counts at
+    0 just before. Held: it
+    reaches its outputs (the text model written and read back); the
+    MASt3R or DepthAnythingV2 nets it builds hold their tensors on `dev` and
+    run their forwards there; under the mast3r confs the pair-depth store
+    holds both images of every pair (MASt3R's pair depth: no image has
+    sensor depth) and, where the conf matches densely, the dense store every
+    pair; under sp-lg_dav2 DepthAnythingV2's depth store every image; on
+    the card K4's float32 kernel launched k4_per_forward times a forward of
+    those nets (MAST3R_K4 a MASt3R forward) and nowhere else, and the
+    tensor-core kernel 36 times a (bfloat16) LightGlue forward. Not held
+    (seeded weights): registered images, points. Returns (summary,
+    launches)."""
+    import shutil
+    from pathlib import Path
+
+    from mpsfm_tpu_torch.utils import io
+    from mpsfm_tpu_torch.utils.profiling import TIMERS
+
+    data = Path(data_dir).parent / what.replace("/", "_")
+    shutil.copytree(data_dir, data)
+    shutil.rmtree(data / "depth")  # no sensor depth: MASt3R's pair depth or DepthAnythingV2's is the depth prior
+    for img in sorted((data / "images").iterdir())[n_images:]:
+        img.unlink()
+    TIMERS.reset()
+    for k in counted.values():
+        k.launches = 0
+    with two_view_seen() as (models, seen, forwards), attention_spy() as (_, lg_fwd):
+        rec, ok, wall = run_pipeline(data, conf, dev)
+    launches = {name: k.launches for name, k in counted.items()}
+    pipe = {k: round(v, 4) for k, v in TIMERS.totals.items() if k.startswith("pipe.")}
+    check_written_model(rec, data / "sfm_outputs")
+    cache = data / "cache"
+    names = sorted(p.name for p in (data / "images").iterdir())
+    pairs = io.read_pairs(cache / "pairs.txt")
+    ex = conf["extractors"]
+    tensors = {role: sorted({t.device.type for m in ms for t in m.net.params.values()}) for role, ms in models.items()}
+    out = dict(ok=bool(ok), registered=rec.num_reg_images(), images=rec.num_images(), points=rec.num_points3D(),
+               wall=wall, pipe=pipe, pairs=len(pairs), forwards=dict(forwards, lightglue=lg_fwd[0]),
+               tensors=tensors, seen={k: sorted(v) for k, v in seen.items()})
+    problems = []
+    want = {"mast3r": ex.get("dense_matcher") == "mast3r", "da2": ex.get("depth", "").startswith("depthanythingv2")}
+    for role, used in want.items():
+        if used and (tensors[role] != [dev.type] or out["seen"][role] != [dev.type] or not forwards[role]):
+            problems.append(f"{role} off {dev.type}: tensors {tensors[role]}, forwards {out['seen'][role]}")
+    if want["mast3r"]:
+        pd = cache / "pair-depth-mast3r.npyd"
+        maps = {(a, b): [io.get_mono_map_from_pairs(pd, n, [(a, b)]) for n in (a, b)] for a, b in pairs}
+        out["pair_depths"] = sum(all(m is not None for m in ms) for ms in maps.values())
+        out["valid_share"] = float(np.mean([m["valid"].mean() for ms in maps.values() for m in ms if m is not None]))
+        if out["pair_depths"] != len(pairs):
+            problems.append(f"pair depths for {out['pair_depths']} of {len(pairs)} pairs")
+        if "dense" in conf["matches_mode"]:
+            out["dense_per_pair"] = [len(io.get_dense_pair(cache / "dense-mast3r.npyd", a, b)[2]) for a, b in pairs]
+            if not any(out["dense_per_pair"]):
+                problems.append(f"dense pairs {out['dense_per_pair']}")
+    if want["da2"]:
+        keys = [set(io.get_mono_map(cache / "depth-depthanythingv2-outdoor.npyd", n) or ()) for n in names]
+        out["depth_keys"] = sorted(keys[0])
+        if not all({"depth", "depth_variance", "normals"} <= k for k in keys):
+            problems.append(f"depth store keys {[sorted(k) for k in keys]}")
+    per = k4_per_forward(models)
+    out["k4_per_forward"] = per
+    if dev.type == "cuda":
+        want_f32 = sum(per[r] * forwards[r] for r in per)
+        want_tc = 36 * lg_fwd[0]
+        if launches.get("attention") != want_f32 or launches.get("attention_tc") != want_tc or (
+                want["mast3r"] and per["mast3r"] != MAST3R_K4):
+            problems.append(f"K4 launches {launches.get('attention')} float32 (want {want_f32}: {per} a forward) and "
+                            f"{launches.get('attention_tc')} on the tensor cores (want {want_tc})")
+    print(f"two-view pipeline ({what}, {len(names)} images without sensor depth): {wall:.3f} s wall, reached its "
+          f"outputs; registered {out['registered']}/{out['images']}, {out['points']} points (not held: seeded "
+          f"weights); {len(pairs)} pairs; forwards {json.dumps(out['forwards'])}, K4 a forward {json.dumps(per)}; "
+          + (f"pair depths for {out['pair_depths']} pairs, valid share {out['valid_share']:.3f}; "
+             if want["mast3r"] else "")
+          + (f"dense matches a pair {out['dense_per_pair']}; " if "dense_per_pair" in out else "")
+          + (f"depth store keys {out['depth_keys']}; " if want["da2"] else "")
+          + f"tensors on {json.dumps(tensors)}, forwards on {json.dumps(out['seen'])}; launches {json.dumps(launches)}")
+    print(f"two-view pipeline ({what}) pipe.* phases (s wall): {json.dumps(pipe)}")
+    if problems:
+        raise AssertionError(f"two-view pipeline ({what}): {problems}: {out}")
+    return out, launches
+
+
+def two_view_phase(dev, counted, size="full"):
+    """Slice 15, the two-view nets: seeded checkpoints in the official layouts
+    (two_view_checkpoints; the neural phase's SuperPoint, LightGlue and
+    Metric3Dv2-small ones by neural_checkpoints), loaded through the port's
+    loaders; (a) MASt3R at full width on every pair of the render and (b)
+    DepthAnythingV2-vitl on every image (two_view_full_width); K4 against
+    attention_plain at MASt3R's encoder and cross-attention shapes
+    (k4_check: K4's time beside SDPA's and the bound); (c) MASt3R,
+    TwoViewNet, WarpNet and DepthAnythingV2 card against CPU, cut
+    (two_view_card_vs_cpu); (d) the port's reconstruct under
+    SP_MAST3R_CONF, SP_MAST3R_DENSE_CONF and SP_LG_DAV2_CONF on the render's
+    first pipeline_images images without sensor depth (two_view_pipeline). size: "full", or "small" for a
+    rehearsal on the CPU (counted {}; no K4 check). Returns (summary,
+    {run: launches}, {shape: K4 row})."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    dev = torch.device(dev)
+    size_name, size = size, TWO_VIEW_SIZES[size]
+    nsize = NEURAL_SIZES[size["neural"]]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        npaths, n_s = neural_checkpoints(Path(tmp) / "weights", nsize)
+        tpaths, t_s = two_view_checkpoints(Path(tmp) / "weights", size, dev)
+        data = Path(tmp) / "scene"
+        render_rgbd_dir(data, **nsize["render"])
+        cfg = nsize["render"]
+        grays, rgbs = neural_images(data)
+        full, kept = two_view_full_width(dev, tpaths, size, grays, rgbs)
+        st = full["mast3r_stage_s"]
+        per_fwd = full["k4_launches"] / max(full["forwards"], 1)
+        print(f"two-view nets ({size_name}): checkpoints written in {n_s + t_s:.2f} s; MASt3R "
+              f"({full['mast3r_params'] / 1e6:.2f} M params) at {cfg['img_wh'][0]}x{cfg['img_wh'][1]} ({full['tokens']} "
+              f"tokens a view) {full['mast3r_s_per_pair'] * 1e3:.2f} ms a pair: "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in st.items())
+              + f"; matches a pair {full['mast3r_matches']}; peak memory "
+              + (f"{full['peak_gb']:.2f} GB" if full["peak_gb"] is not None else "not measured (CPU)")
+              + f"; K4 float32 launches {full['k4_launches']} for {full['forwards']} forwards ({per_fwd:g} a forward); "
+              f"DepthAnythingV2-vitl ({full['da2_params'] / 1e6:.2f} M params, metric, input "
+              f"{size['da2'].get('input_size', 518)}) {full['da2_s'] * 1e3:.2f} ms an image, K4 launches "
+              f"{full['da2_k4_launches']} for {len(rgbs)} images")
+        if not (full["mast3r_ok"] and full["da2_ok"]) or (dev.type == "cuda" and per_fwd != MAST3R_K4):
+            raise AssertionError(f"two-view nets full width: {full}")
+        k4 = {}
+        if dev.type == "cuda":
+            for name, args in kept.items():
+                B, N, H, hd = args[0].shape
+                k4[name] = k4_check(f"K4 at MASt3R's {name} attention ({B}x{N}x{H}x{hd} against {args[1].shape[1]} "
+                                    "keys, all real), float32", args)
+        del kept
+        t = time.perf_counter()
+        vs = two_view_card_vs_cpu(dev, size, rgbs)
+        print(f"two-view nets card vs CPU ({time.perf_counter() - t:.1f} s; each output's largest gap over its largest "
+              f"magnitude, bound {TWO_VIEW_REL}): " + ", ".join(f"{k} {v:.2e}" for k, v in vs["gaps"].items()))
+        if not vs["ok"]:
+            raise AssertionError(f"two-view nets card vs CPU: {vs}")
+        runs, launches = {}, {}
+        for what, base in (("sp-mast3r", SP_MAST3R_CONF), ("sp-mast3r-dense", SP_MAST3R_DENSE_CONF),
+                           ("sp-lg_dav2", SP_LG_DAV2_CONF)):
+            runs[what], launches[what] = two_view_pipeline(dev, counted, what, two_view_conf(base, npaths, tpaths, size),
+                                                           data, size["pipeline_images"])
+    print(f"two-view nets phase: {time.perf_counter() - t0:.1f} s wall")
+    return dict(full=full, card_vs_cpu=vs, pipelines=runs), launches, k4
 
 
 # ---- the sparse BA solver (slice 8) ----
@@ -5839,6 +6295,9 @@ def main():
     print(f"paper nets phase on {card_line()}")
     paper, paper_launches, gp_k1 = paper_nets_phase(dev, {**counted, "attention": attention.KERNEL,
                                                           "attention_tc": attention.KERNEL_TC})
+    print(f"two-view nets phase on {card_line()}")
+    _, two_view_launches, mast3r_k4 = two_view_phase(dev, {**counted, "attention": attention.KERNEL,
+                                                                 "attention_tc": attention.KERNEL_TC})
     sparse, sparse_launches = sparse_ba_phase(dev, counted)
     dist_k1, dist_k1_launches, dist_mapper_launches = dist_ba_phase(dev)
     if "--profile" in sys.argv[1:]:
@@ -5906,12 +6365,25 @@ def main():
     print(f"K1 many at the RoMa GP: {gp_k1['ms']:.4f} ms (plain {gp_k1['plain_ms']:.3f} ms, library "
           f"{gp_k1['library_ms']:.4f} ms, torch.linalg.solve {gp_k1['lu_ms']:.4f} ms, bound {bound:.5f} ms), "
           f"{gp_launches} launches by the GP in the sp-roma-dense_m3dv2 run")
+    # K4 float32 at MASt3R's encoder shape (both views batched, 2x1200x16x64) and at its decoder cross-attention
+    # (1x1200x12x64): its launches in the phase's sp-mast3r run, every MASt3R attention on it (MAST3R_K4 a forward)
+    mast3r_launches = two_view_launches["sp-mast3r"]["attention"]
+    for shape, k in mast3r_k4.items():
+        bound = max(k["ops_ms"], k["bytes_ms"])
+        rows.append(dict(
+            name=f"mast3r_attention_f32 ({shape})", route="cuda", source="mpsfm_tpu_torch/csrc/attention.cu",
+            replaces="mpsfm_tpu/extraction/matchers/lightglue.py:322", launches=mast3r_launches,
+            max_abs_err=k["err"], ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=bound,
+            bound_by="operations" if k["ops_ms"] >= k["bytes_ms"] else "bytes", library_ms=k["library_ms"]))
+        print(f"K4 float32 at MASt3R's {shape} attention: {k['ms']:.4f} ms (plain {k['plain_ms']:.3f} ms, SDPA float32 "
+              f"{k['library_ms']:.4f} ms, bound {bound:.5f} ms), {mast3r_launches} launches in the sp-mast3r run")
     print(f"scene refinement launches: {json.dumps(scene_launches)}")
     print(f"mapping launches: {json.dumps(mapping_launches)}")
     print(f"pipeline launches: {json.dumps(pipeline_launches)}")
     print(f"dense modes launches: {json.dumps(dense_launches)}")
     print(f"neural extraction launches: {json.dumps(neural_launches)}")
     print(f"paper nets launches: {json.dumps(paper_launches)}")
+    print(f"two-view nets launches: {json.dumps(two_view_launches)}")
     print(f"sparse BA launches: {json.dumps(sparse_launches)}")
     print(f"distributed BA launches: K1 {dist_k1_launches} on the dense-T route; the mapper on rank 0 "
           f"{json.dumps(dist_mapper_launches)}")

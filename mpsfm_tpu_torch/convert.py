@@ -3,8 +3,9 @@
 What carries over is the state the JAX package hands between its device
 programs, its cameras and poses, the depth-consistency check's grids and
 per-pair rows, the scene's host state, and the weights of the neural
-extraction (SuperPoint, LightGlue, NetVLAD, Metric3Dv2, DSINE, RoMa), as the official
-checkpoint layouts the port loads. Each device converter takes host arrays, e.g.
+extraction (SuperPoint, LightGlue, NetVLAD, Metric3Dv2, DSINE, RoMa, MASt3R,
+DepthAnythingV2, the two-view and warp nets), as the checkpoint layouts the
+port loads. Each device converter takes host arrays, e.g.
 `{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
 and returns tensors on `device` (the card unless the caller asks for the
 CPU; no GPU raises, see `resolve_device`); `reconstruction` builds the
@@ -325,3 +326,47 @@ def roma_state_dicts(jparams) -> tuple[dict, dict]:
     outdoor = {k: _cpu32(v) for k, v in jparams.items() if not k.startswith("dinov2.")}
     dinov2 = {k[len("dinov2."):]: _cpu32(v) for k, v in jparams.items() if k.startswith("dinov2.")}
     return outdoor, dinov2
+
+
+def mast3r_state_dict(jparams) -> dict:
+    """JAX Mast3rNet params (a flat dict under the official names) -> the
+    MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth state dict of CPU
+    tensors (an identity on names)."""
+    return {k: _cpu32(v) for k, v in jparams.items()}
+
+
+def depth_anything_state_dict(jparams) -> dict:
+    """JAX DepthAnythingV2 params (a flat dict under the official names) ->
+    the depth_anything_v2_*.pth state dict of CPU tensors (an identity on
+    names)."""
+    return {k: _cpu32(v) for k, v in jparams.items()}
+
+
+def flax_state_dict(jparams) -> dict:
+    """A Flax param tree ({"params": {module: {...}}} or its inner dict) ->
+    the state dict of the port's torch modules that carry the Flax names
+    (nets/vit.py, dpt.py, two_view.py, warp.py): the path joined by dots,
+    Dense kernels (in, out) transposed to (out, in), Conv kernels HWIO to
+    OIHW, LayerNorm scales as weights; other leaves (position embeddings,
+    class tokens) as they are. CPU tensors."""
+    tree = jparams.get("params", jparams)
+    sd = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + ".")
+                continue
+            a = np.asarray(v, np.float32)
+            if k == "kernel":
+                k, a = "weight", (a.T if a.ndim == 2 else np.transpose(a, (3, 2, 0, 1)))
+            elif k == "scale":
+                k = "weight"
+            sd[prefix + k] = _cpu32(np.ascontiguousarray(a))
+
+    walk(tree, "")
+    return sd
+
+
+# JAX TwoViewNet and WarpNet params (Flax trees) -> nets/two_view.TwoViewNet's and nets/warp.WarpNet's state dicts
+two_view_state_dict = warp_state_dict = flax_state_dict

@@ -12,11 +12,11 @@ The caches are HDF5 files (``cache_format: h5``, the JAX package's, which
 either package reads) or directory stores (``cache_format: npy``, for a
 host without h5py); utils.io.open_store picks by the path's suffix. The
 detectors (classical, SuperPoint), the matchers (the mutual NN, LightGlue,
-the dense NCC flow and RoMa), NetVLAD retrieval, the Metric3Dv2 and DSINE
-priors and the sky masks run on ``device``. Not ported yet, and raising:
-the other neural dense matchers (MASt3R, the two-view and warp classes)
-and their two-view depth, and the other neural priors (DepthPro,
-DepthAnythingV2, vit_mono; ROADMAP queue 1 item 6).
+the dense NCC flow, RoMa, MASt3R and the two-view and warp classes),
+NetVLAD retrieval, the Metric3Dv2, DSINE and DepthAnythingV2 priors, the
+two-view depth of MASt3R and the two-view class, and the sky masks run on
+``device``. Not ported yet, and raising: the other neural priors
+(DepthPro, vit_mono; ROADMAP queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -43,22 +43,34 @@ from mpsfm_tpu_torch.utils.workqueue import WorkQueue
 
 FEATURE_MODELS = {"superpoint": SuperPoint, "classical": ClassicalFeatures}
 MATCHER_MODELS = {"lightglue": LightGlue, "nn": MutualNNMatcher}
-NEURAL = "not ported yet (ROADMAP queue 1 item 6: the rest of the neural extraction)"
-NEURAL_DENSE = ("two_view", "mast3r_class", "mast3r", "warp", "roma_class")
+# the dense matchers with a two-view depth (pair_depth): the 'depth' matching mode takes it for an image
+# without sensor depth
+PAIR_DEPTH_MATCHERS = ("two_view", "mast3r_class", "mast3r")
 
 
 def get_dense_matcher(name: str, conf=None, device="cuda"):
-    """Dense matcher registry: the classical NCC flow and RoMa
-    (nets/roma.py, the official checkpoint naming); the JAX package's other
-    neural ones (MASt3R, the two-view and warp classes) are not ported yet."""
+    """Dense matcher registry: the classical NCC flow, the two-view
+    cross-attention net (MASt3R class, nets/two_view.py), the exact MASt3R
+    (nets/mast3r.py, the official checkpoint naming), the warp regressor
+    (RoMa class, nets/warp.py) and the exact RoMa (nets/roma.py)."""
     if name in ("dense_ncc", "ncc"):
         return DenseNCCMatcher(conf, device=device)
+    if name in ("two_view", "mast3r_class"):
+        from mpsfm_tpu_torch.extraction.nets.two_view import TwoViewMatcher
+
+        return TwoViewMatcher(conf, device=device)
+    if name == "mast3r":
+        from mpsfm_tpu_torch.extraction.nets.mast3r import Mast3rMatcher
+
+        return Mast3rMatcher(conf, device=device)
+    if name in ("warp", "roma_class"):
+        from mpsfm_tpu_torch.extraction.nets.warp import WarpMatcher
+
+        return WarpMatcher(conf, device=device)
     if name == "roma":
         from mpsfm_tpu_torch.extraction.nets.roma import RomaMatcher
 
         return RomaMatcher(conf, device=device)
-    if name in NEURAL_DENSE:
-        raise NotImplementedError(f"dense matcher {name!r}: {NEURAL}")
     raise ValueError(f"unknown dense matcher '{name}'")
 
 
@@ -94,7 +106,7 @@ class Extraction(BaseClass):
         self.cache_dir = Path(cache_dir)
         self.cache_dir.mkdir(parents=True, exist_ok=True)
         self.extract = set(extract)
-        self.feature_model = self.matcher_model = self.depth_backend = None
+        self.feature_model = self.matcher_model = self.dense_model = self.depth_backend = None
 
         def store(stem):
             return io.store_path(self.cache_dir, stem, self.conf.cache_format)
@@ -129,6 +141,13 @@ class Extraction(BaseClass):
                     "use matcher='nn' or provide a checkpoint."
                 )
         return self.matcher_model
+
+    def _get_dense_matcher(self):
+        """The dense matcher, built once for the dense matches and the pair depths."""
+        if self.dense_model is None:
+            self.dense_model = get_dense_matcher(self.conf.dense_matcher, dict(self.conf.dense_matcher_conf),
+                                                 device=self.device)
+        return self.dense_model
 
     # ---------- image loading ----------
     def _load_gray(self, name):
@@ -308,7 +327,7 @@ class Extraction(BaseClass):
         todo = [p for p in pairs if io.names_to_pair(*p) not in existing]
         if not todo:
             return path
-        matcher = get_dense_matcher(self.conf.dense_matcher, dict(self.conf.dense_matcher_conf), device=self.device)
+        matcher = self._get_dense_matcher()
         for name0, name1 in todo:
             g0, s0, _ = self._load_gray(name0)
             g1, s1, _ = self._load_gray(name1)
@@ -340,21 +359,28 @@ class Extraction(BaseClass):
         (reference match_dense_2view.py:191-199 + mast3r.py:303-315; the
         scene-level consumer picks the best-confidence pair per image).
 
-        The JAX package prefers a two-view depth predictor (MASt3R's
-        pointmap depth) for images without sensor depth; none is ported
-        (ROADMAP queue 1 item 6) and neither the NCC flow nor RoMa has one,
-        so each image takes its depth from the prior backend, sensor depth
-        where the scene has it, at a fixed 1% relative uncertainty (the
-        fork's measured-depth calibration)."""
+        Where the pair's first image has no sensor depth and the dense
+        matcher has a two-view depth (MASt3R's or the two-view class's
+        pointmap z, variance (1/conf)²), both images take it from one
+        forward of the pair, as in the JAX package. Otherwise each image
+        takes its depth from the prior backend, sensor depth where the scene
+        has it, at a fixed 1% relative uncertainty (the fork's
+        measured-depth calibration)."""
         path = self.paths["pair_depth"]
         existing = io.pair_keys(path) if path.exists() and "d" not in self.extract else set()
         for name0, name1 in pairs:
             if io.names_to_pair(name0, name1) in existing:
                 continue
             kws = {name: self.scene_parser.prior_inputs(name) for name in (name0, name1)}
-            if kws[name0].get("depth_measured") is None and self.conf.dense_matcher in NEURAL_DENSE:
-                # where the first image has no sensor depth, the JAX package takes both from the matcher
-                raise NotImplementedError(f"two-view depth of {self.conf.dense_matcher!r}: {NEURAL}")
+            if kws[name0].get("depth_measured") is None and self.conf.dense_matcher in PAIR_DEPTH_MATCHERS:
+                imgs = [io.read_image(self.scene_parser.image_path(n)) for n in (name0, name1)]
+                res = self._get_dense_matcher().pair_depth(*imgs)
+                io.write_pair_mono_map(path, name0, name1, {
+                    name: {"depth": np.asarray(r["depth"], np.float32), "valid": r["valid"],
+                           "variance": np.asarray(r["variance"], np.float32)}
+                    for name, r in ((name0, res["0"]), (name1, res["1"]))})
+                self.log(f"pair depth (two-view) {name0}-{name1}", level=2)
+                continue
             per_image = {}
             for name, kw in kws.items():
                 depth = kw.get("depth_measured")
@@ -395,6 +421,12 @@ class Extraction(BaseClass):
 
     # ---------- monocular priors ----------
     def extract_mono(self):
+        """Per-image depth and normal priors -> the depth store. In the 'depth'
+        matching mode an image whose depth backend has no depth for it (the
+        oracle or measured backend without its map: sp-mast3r.yaml on a
+        scene without sensor depth) keeps the normals only, its depth coming
+        from the pair store; the JAX package's oracle writes 0-d NaN maps
+        there, which its store cannot read back (ROADMAP queue 3)."""
         names = self.scene_parser.image_names()
         dpath = self.paths["depth"]
         done = io.mono_names(dpath) if dpath.exists() and "d" not in self.extract else set()
@@ -413,13 +445,19 @@ class Extraction(BaseClass):
             rgb = None
             if getattr(self.depth_backend, "needs_image", False) or normals_backend is not None:
                 rgb = io.read_image(self.scene_parser.image_path(name))
-            out = self.depth_backend(rgb, **kw)
+            try:
+                out = self.depth_backend(rgb, **kw)
+            except MissingDepthError:
+                if "depth" not in self.conf.matches_mode:
+                    raise
+                # the 'depth' matching mode takes this image's depth from the pair store: keep its normals only
+                out = {}
             if normals_backend is not None:
                 try:
                     out.update(normals_backend(rgb, **kw))
                 except MissingWeightsError:
                     pass  # no weights in this environment: keep the depth-derived normals
-            if "normals" not in out and "intrinsics" in kw:
+            if "normals" not in out and "depth" in out and "intrinsics" in kw:
                 fx, fy, cx, cy = kw["intrinsics"]
                 out["normals"] = normals_from_depth(out["depth"], fx, fy, cx, cy)
                 out["normals_variance"] = np.full(out["depth"].shape, (np.deg2rad(5.0)) ** 2)

@@ -8,13 +8,15 @@ mpsfm_tpu/extraction/priors.py).
 * ``metric3dv2-{small,large,giant2}``, their ``-fc`` (flip-consistency)
   variants and ``metric3dv2-normals``: Metric3Dv2 (nets/metric3d.py) on the
   device; ``dsine*`` (``dsine-kappa``, ``dsine-kappa-fc``): DSINE's normals
-  (nets/dsine.py) on the device. Each once ``conf.weights_path`` names a
-  checkpoint (a file, or a registry name whose file is in
-  $MPSFM_WEIGHTS_DIR or ./local/weights); without one, calling the backend
-  raises MissingWeightsError.
+  (nets/dsine.py) on the device; ``depthanythingv2-*`` (``-outdoor``,
+  ``-indoor``): DepthAnythingV2's metric depth (nets/depth_anything.py) on
+  the device. Each once ``conf.weights_path`` names a checkpoint (a file,
+  or a registry name whose file is in $MPSFM_WEIGHTS_DIR or
+  ./local/weights); without one, calling the backend raises
+  MissingWeightsError.
 
-The other neural backends (DepthPro, DepthAnythingV2, the ViT-DPT net
-``vit_mono``) are not ported yet: asking for one raises.
+The other neural backends (DepthPro, the ViT-DPT net ``vit_mono``) are not
+ported yet: asking for one raises.
 """
 
 from __future__ import annotations
@@ -100,7 +102,9 @@ class MeasuredDepthBackend:
 
 
 class SyntheticOracleBackend:
-    """Test backend: caller provides ground-truth maps (+noise knobs)."""
+    """Test backend: caller provides ground-truth maps (+noise knobs).
+    Without depth_gt it raises MissingDepthError, where the JAX package's
+    writes 0-d NaN maps that its store cannot read back (ROADMAP queue 3)."""
 
     name = "oracle"
 
@@ -108,6 +112,8 @@ class SyntheticOracleBackend:
         self.conf = conf or {}
 
     def __call__(self, image_rgb, depth_gt=None, normals_gt=None, noise=0.0, rel_unc=0.03, rng=None, **kw):
+        if depth_gt is None:
+            raise MissingDepthError("oracle backend needs depth_gt")
         rng = rng or np.random.default_rng(0)
         d = np.asarray(depth_gt, np.float64)
         if noise:
@@ -125,8 +131,8 @@ class SyntheticOracleBackend:
 
 # Architecture presets of the named neural backends: metric3dv2-* route to the exact Metric3Dv2
 # (nets/metric3d.py: giant2 ViT-g 1536x40, large ViT-L 1024x24, small ViT-S 384x12). The JAX package's
-# entries of the backends not ported yet (depthpro, depthanythingv2-outdoor) are kept for parity, and so is
-# dsine's, whose keys DSINE does not read.
+# entries whose keys their nets do not read (depthpro, not ported yet; depthanythingv2-outdoor, whose "dim" is
+# vitl's own; dsine) are kept for parity.
 ARCH_PRESETS = {
     "metric3dv2-giant2": {"encoder": "vit_giant2_reg"},
     # normals-only variant (reference defaults/*: normals from the default metric3dv2, its depth not kept)
@@ -140,7 +146,8 @@ ARCH_PRESETS = {
 
 
 class NeuralDepthBackend:
-    """Named neural depth/normal backends: the metric3dv2 family and DSINE.
+    """Named neural depth/normal backends: the metric3dv2 family, DSINE and
+    DepthAnythingV2.
     Per-name uncertainty calibrations and arch presets are applied; the
     ``-fc`` variants add the flipped pass. The net activates once
     ``conf.weights_path`` is a file; without it, calling the backend
@@ -154,7 +161,7 @@ class NeuralDepthBackend:
         self.name = name
         conf = dict(conf or {})
         base = name[:-3] if name.endswith("-fc") else name
-        if not base.startswith(("metric3dv2", "dsine")):
+        if not base.startswith(("metric3dv2", "dsine", "depthanythingv2")):
             raise NotImplementedError(f"prior backend {name!r}: {NOT_PORTED}")
         for k, v in ARCH_PRESETS.get(base, {}).items():
             conf.setdefault(k, v)
@@ -176,8 +183,11 @@ class NeuralDepthBackend:
             else:
                 if Path(wp).exists():
                     conf["weights_path"] = wp
-                    backend = _DSINEBackend if base.startswith("dsine") else _Metric3DBackend
-                    self.backend = backend(conf, device)
+                    if base.startswith("depthanythingv2"):
+                        self.backend = _DA2Backend(conf, base, device)
+                    else:
+                        backend = _DSINEBackend if base.startswith("dsine") else _Metric3DBackend
+                        self.backend = backend(conf, device)
                 else:
                     self._missing = f" weights_path {wp!r} is not a file."
 
@@ -188,6 +198,37 @@ class NeuralDepthBackend:
             f"Depth backend '{self.name}' has no weights in this environment. "
             "Use 'measured' (RGB-D), provide cached priors, or supply conf.weights_path." + self._missing
         )
+
+
+class _DA2Backend:
+    """DepthAnythingV2 (metric) -> depth priors: the official
+    depth_anything_v2_metric_*_vit{s,b,l}.pth loads as it is; the depth
+    variance from the estimator's calibration (a relative uncertainty),
+    normals derived geometrically from the depth. Replaces the reference
+    wrapper mpsfm/extraction/imagewise/geometry/models/depth/depthanything_v2.py."""
+
+    def __init__(self, conf, base, device="cuda"):
+        from mpsfm_tpu_torch.extraction.nets.depth_anything import DepthAnythingV2
+
+        conf = dict(conf)
+        conf.setdefault("depth_estimation_type", "metric")
+        # outdoor checkpoints were trained with max_depth 80, indoor 20
+        conf.setdefault("max_depth", 20.0 if base.endswith("indoor") else 80.0)
+        self.net = DepthAnythingV2(conf, device=device)
+        if self.net.params is None:
+            self.net.init_random(0)
+        self.rel_unc = conf.get("depth_uncertainty", 0.079)
+
+    def __call__(self, image_rgb, intrinsics=None, **kw):
+        d = np.asarray(self.net.infer_image(image_rgb), np.float64)
+        valid = d > 0
+        out = {"depth": d, "depth_variance": (d * self.rel_unc) ** 2, "valid": valid}
+        if intrinsics is not None:
+            fx, fy, cx, cy = intrinsics
+            fill = np.median(d[valid]) if valid.any() else 1.0
+            out["normals"] = normals_from_depth(np.where(valid, d, fill), fx, fy, cx, cy)
+            out["normals_variance"] = np.full(d.shape, (np.deg2rad(8.0)) ** 2)
+        return out
 
 
 class _Metric3DBackend:

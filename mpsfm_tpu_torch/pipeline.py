@@ -148,7 +148,7 @@ class ReconstructionManager(BaseClass):
                 for k in ("normals", "normals_variance", "normals2", "normals2_variance")
                 if k in mono
             }
-            if "normals" not in normals_dict:
+            if "normals" not in normals_dict or "depth" not in depth_dict:
                 continue
             # per-kp uncertainty of detected features
             _, unc = io.get_keypoints(self.extractor.paths["sfeats"], im.name, return_uncertainty=True)

@@ -12,7 +12,9 @@ tile, so padded queries) in float32 (2e-5) and bfloat16 (chip_smoke's
 k4_bf16_bound: 2u · plain(q, k, |v|) + one bfloat16 ulp + 2e-5, the spread
 of rounding P to bfloat16, which tests/test_torch_attention_bf16.py holds
 the JAX package's own bfloat16 path to), the output rows past N left
-untouched, and unaligned operands. On the CPU: the wrapper's bfloat16
+untouched, and unaligned operands; the float32 kernel at MASt3R's shapes
+(hd 64, every key real, N = M = 1200: the encoder's 2 × 16 heads and a
+decoder cross-attention's 1 × 12). On the CPU: the wrapper's bfloat16
 semantics and what it refuses.
 """
 
@@ -193,3 +195,29 @@ def test_k4_probe_edits_the_kernel_source():
         k4_probe.variant_source(src.replace("#define TC_WG", "#define TC_WGX"), (1, 3, 4))
     if not torch.cuda.is_available():
         assert k4_probe.main() == 1
+
+
+# MASt3R's attentions at 640×480 (a 30×40 patch grid): the encoder's self-attention with both views batched
+# (B = 2, 16 heads) and a decoder's cross-attention (B = 1, 12 heads); N = M = 1200, not a multiple of the
+# 64-query tile, every key real
+MAST3R_SHAPES = {"encoder": (2, 1200, 16), "decoder_cross": (1, 1200, 12)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(MAST3R_SHAPES))
+def test_k4_float32_at_mast3r_shapes(name):
+    """K4's float32 kernel, launched once, against attention_plain at
+    MASt3R's shapes (hd 64, no masked key), within 2e-5; the last query
+    tile's 48 rows past N = 1200 are padding the kernel does not write."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, N, H = MAST3R_SHAPES[name]
+    rng = np.random.default_rng(7)
+    tq, tk, tv = (torch.as_tensor(rng.normal(size=(B, N, H, 64)), dtype=torch.float32, device="cuda")
+                  for _ in range(3))
+    tm = torch.ones(B, N, dtype=torch.bool, device="cuda")
+    n = tatt.KERNEL.launches
+    got = tatt.attention(tq, tk, tv, tm, 64 ** -0.5)
+    torch.cuda.synchronize()
+    assert tatt.KERNEL.launches == n + 1 and torch.isfinite(got).all()
+    assert_k4_close(got, tq, tk, tv, tm, 64 ** -0.5)

@@ -325,18 +325,54 @@ def test_extraction_caches_read_across_packages(scene_dir, tmp_path, monkeypatch
 
 
 def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
-    """What is not ported raises naming item 6. DSINE and RoMa are ported:
-    without weights, dsine-kappa-fc normals fall back to the depth-derived
-    normals (the JAX package's store: no normals2) and the roma matcher
-    raises MissingWeightsError naming both of its files."""
+    """What is not ported raises naming item 6: vit_mono. MASt3R and
+    DepthAnythingV2 are ported: without weights at the official width the
+    mast3r dense matcher and the depthanythingv2-outdoor prior raise
+    MissingWeightsError, and at tests/test_mast3r.py's TINY width (the
+    seeded draw both packages take) and on a tiny DepthAnythingV2
+    checkpoint the run writes the JAX package's dense store (as sets) and
+    depth store (within 1e-4 relative). DSINE and RoMa are ported: without
+    weights, dsine-kappa-fc normals fall back to the depth-derived normals
+    (the JAX package's store: no normals2) and the roma matcher raises
+    MissingWeightsError naming both of its files."""
+    from mpsfm_tpu.extraction.nets.depth_anything import DepthAnythingV2 as JDA2
+    from mpsfm_tpu_torch import convert
+    from test_mast3r import TINY
+    from test_torch_depth_anything import METRIC
+
     parser = TParser(scene_dir)
-    for conf, call, what in (
-        ({"depth": "vit_mono"}, lambda ex: ex.extract_mono(), "item 6"),
-        ({"dense_matcher": "mast3r"}, lambda ex: ex.extract_dense_matches([("im00.png", "im01.png")]), "item 6"),
-        ({"depth": "depthanythingv2-outdoor"}, lambda ex: ex.extract_mono(), "item 6"),
-    ):
-        with pytest.raises(NotImplementedError, match=what):
-            call(TExtraction(conf, parser, tmp_path / "c", device="cpu"))
+    pair = [("im00.png", "im01.png")]
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TExtraction({"depth": "vit_mono"}, parser, tmp_path / "c", device="cpu").extract_mono()
+    with pytest.raises(tpriors.MissingWeightsError, match="MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth"):
+        TExtraction({"dense_matcher": "mast3r"}, parser, tmp_path / "c", device="cpu").extract_dense_matches(pair)
+    with pytest.raises(tpriors.MissingWeightsError, match="depthanythingv2-outdoor"):
+        TExtraction({"depth": "depthanythingv2-outdoor"}, parser, tmp_path / "c", device="cpu").extract_mono()
+    conf = {"dense_matcher": "mast3r", "dense_matcher_conf": TINY}
+    tpath = TExtraction(conf, parser, tmp_path / "mast3r", device="cpu").extract_dense_matches(pair)
+    jpath = JExtraction(conf, JParser(scene_dir), tmp_path / "mast3r-jax").extract_dense_matches(pair)
+    (k0t, k1t, ct), (k0j, k1j, cj) = (tio.get_dense_pair(p, *pair[0]) for p in (tpath, jpath))
+    kt, kj = np.concatenate([k0t, k1t], 1), np.concatenate([k0j, k1j], 1)
+    it, ij = np.lexsort(kt.T[::-1]), np.lexsort(kj.T[::-1])
+    assert len(it) == len(ij) > 0
+    np.testing.assert_array_equal(kt[it], kj[ij])
+    assert np.abs(ct[it] - cj[ij]).max() <= 1e-5
+    j = JDA2(METRIC)
+    j.init_random(0)
+    torch.save(convert.depth_anything_state_dict({k: np.asarray(v) for k, v in j.params.items()}),
+               tmp_path / "da2.pth")
+    conf = {"depth": "depthanythingv2-outdoor", "depth_conf": {**METRIC, "weights_path": str(tmp_path / "da2.pth")}}
+    tex = TExtraction(conf, parser, tmp_path / "da2", device="cpu")
+    jex = JExtraction(conf, JParser(scene_dir), tmp_path / "da2-jax")
+    tex.extract_mono()
+    jex.extract_mono()
+    for name in parser.image_names():
+        got, want = tio.get_mono_map(tex.paths["depth"], name), jio.get_mono_map(jex.paths["depth"], name)
+        assert got.keys() == want.keys() and "normals" in got
+        for k in want:
+            x, y = np.asarray(want[k]), np.asarray(got[k])
+            tol = 1e-3 if k == "normals" else 1e-4 * np.abs(x).max()
+            assert np.abs(x.astype(np.float64) - y).max() <= tol, (name, k)
     conf = {"depth": "measured", "normals": "dsine-kappa-fc", "normals_conf": {"weights_path": None}}
     tex = TExtraction(conf, parser, tmp_path / "dsine", device="cpu")
     jex = JExtraction(conf, JParser(scene_dir), tmp_path / "dsine-jax")

@@ -28,6 +28,13 @@ packages.
     widths give the JAX package's stores.
 (d) chip_smoke's neural extraction phase rehearsed on the CPU at its small
     size.
+(e) sp-mast3r.yaml, sp-mast3r-dense.yaml and sp-lg_dav2.yaml on the render
+    without its sensor depth, at tiny widths (MASt3R at tests/test_mast3r.py's
+    TINY, DepthAnythingV2 at tests/test_torch_depth_anything.py's METRIC,
+    both the JAX package's init_random(0) draw with the last layer of the
+    depth heads set to a plane at depth 5; the Metric3Dv2-normals at TINY):
+    from the JAX run's caches (JAX's registration draws) the port registers
+    the JAX run's images in its order with its points.
 """
 
 import json
@@ -359,3 +366,95 @@ def test_chip_smoke_neural_conf_is_the_small_config():
     want = merged(json.loads(json.dumps(cfg)), {"extractors": {"retrieval": "netvlad"}, "cache_format": "npy",
                                                 "mapper": {"ba": {"dist_ba": "off"}}})
     assert chip_smoke.NEURAL_CONF == want
+
+
+TWO_VIEW_CONFIGS = ["sp-mast3r", "sp-mast3r-dense", "sp-lg_dav2"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", TWO_VIEW_CONFIGS)
+def test_mast3r_and_da2_configs_decide_as_jax(jax_run, tmp_path, name):
+    """(e). The JAX package's reconstruct of the config in a subprocess, then
+    the port's from a copy of its caches: every cache a hit, the same
+    registration order, registered images and points (within POINTS_REL).
+    sp-mast3r takes each image's depth from MASt3R's pair depth (no sensor
+    depth; the per-image depth pass, whose maps the pair depth replaces, on
+    the tiny Metric3Dv2), sp-mast3r-dense adds MASt3R's dense matches,
+    sp-lg_dav2 takes DepthAnythingV2's metric depth. The seeded heads' last
+    layers are set to a plane at depth 5 (the render's 4-6.5): MASt3R's
+    draw puts every depth within 1e-3 of 0 and DepthAnythingV2's near 10,
+    under which the mapper's ladders decide on marginal values."""
+    from mpsfm_tpu.extraction.nets.depth_anything import DepthAnythingV2 as JDA2
+    from mpsfm_tpu.extraction.nets.mast3r import Mast3rNet as JMast3rNet
+    from test_mast3r import TINY as MAST3R_TINY
+    from test_torch_depth_anything import METRIC
+    from test_torch_pipeline_dense import merged as merged_conf
+    from test_torch_registration import jax_draws
+
+    ck = jax_run["ckpt"]
+    tiny_m3d = {k: v for k, v in TINY.items() if k != "encoder"}
+    cfg = json.loads(json.dumps(load_cfg(ROOT / "configs" / f"{name}.yaml")))
+    over = {"extractors": {"n_retrieval": 3, "resize_max": 0,
+                           "feature_conf": {"weights_path": str(ck["features"]), "max_keypoints": 1024},
+                           "normals_conf": {"weights_path": str(ck["depth"]), "encoder": "vit_small_reg",
+                                            **tiny_m3d}},
+            "mapper": {"int_covs": False, "ba": {"max_iters": 10}, "registration": {"num_hyp": 256}},
+            "image_priors": {"cg_max_iter": 150, "max_iter": 3}}
+    if name.startswith("sp-mast3r"):
+        jm = JMast3rNet(MAST3R_TINY)
+        jm.init_random(0)
+        mp = {k: np.array(v) for k, v in jm.params.items()}
+        for head in ("downstream_head1", "downstream_head2"):  # pointmap (0, 0, 5), confidence 4
+            mp[f"{head}.dpt.head.4.weight"][:] = 0
+            mp[f"{head}.dpt.head.4.bias"][:] = (0, 0, np.log(6.0), np.log(3.0))
+        torch.save({"model": convert.mast3r_state_dict(mp)}, tmp_path / "mast3r.pth")
+        over["extractors"]["dense_matcher_conf"] = {**MAST3R_TINY, "weights_path": str(tmp_path / "mast3r.pth")}
+        # the configs' per-image depth is the oracle's, which the JAX package cannot store without a
+        # ground truth (ROADMAP queue 3): both take a Metric3Dv2's, which the pair depth then replaces
+        over["extractors"]["depth"] = "metric3dv2-small"
+        over["extractors"]["depth_conf"] = {"weights_path": str(ck["depth"]), **tiny_m3d}
+    else:
+        jd = JDA2(METRIC)
+        jd.init_random(0)
+        dp = {k: np.array(v) for k, v in jd.params.items()}
+        dp["depth_head.scratch.output_conv2.2.weight"][:] = 0  # sigmoid(b) · max_depth 20 = 5
+        dp["depth_head.scratch.output_conv2.2.bias"][:] = np.log(0.25 / 0.75)
+        torch.save(convert.depth_anything_state_dict(dp), tmp_path / "da2.pth")
+        over["extractors"]["matcher_conf"] = {"weights_path": str(ck["matcher"]), **LG}
+        over["extractors"]["depth_conf"] = {**METRIC, "weights_path": str(tmp_path / "da2.pth")}
+    shutil.copytree(jax_run["data"], tmp_path / "scene")
+    shutil.rmtree(tmp_path / "scene" / "depth")  # no sensor depth: the priors come from the nets
+    (tmp_path / "conf.json").write_text(json.dumps(merged_conf(cfg, over)))
+    scene_path = tmp_path / "scene"
+    j = run_jax_modes([(name, str(scene_path), str(tmp_path / "conf.json"), str(tmp_path / "jax_out"))])[name]
+    cache = scene_path / "cache"
+    stores = {p.name for p in cache.iterdir()}
+    if name.startswith("sp-mast3r"):
+        assert "pair-depth-mast3r.h5" in stores and ("dense-mast3r.h5" in stores) == name.endswith("dense")
+    else:
+        assert "depth-depthanythingv2-outdoor.h5" in stores
+    before = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
+    verified, kept = [], {}
+    estimate, base = correspondences.estimate_two_view_geometry_batch, tpipeline.MpsfmMapper
+
+    def verify(pairs, *a, **k):
+        verified.append(len(pairs))
+        return estimate(pairs, *a, **k)
+
+    def mapper(*a, **k):
+        kept["mapper"] = base(*a, **k)
+        return kept["mapper"]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(treg, "_draw", jax_draws)
+        mp.setattr(correspondences, "estimate_two_view_geometry_batch", verify)
+        mp.setattr(tpipeline, "MpsfmMapper", mapper)
+        rec, ok = tpipeline.reconstruct(scene_path, conf=load_cfg(tmp_path / "conf.json"),
+                                        sfm_outputs_dir=tmp_path / "port_out", device="cpu")
+    after = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
+    assert {k for k in after if after[k] != before.get(k)} <= {"two_view_geometry.h5"}
+    assert verified == [0]
+    order = [i for i in kept["mapper"].nextview.registration_order if i is not None]
+    assert bool(ok) == j["ok"] and order == j["order"] and sorted(rec.reg_image_ids()) == j["registered"], (order, j)
+    assert len(j["registered"]) >= 2, j
+    assert abs(rec.num_points3D() - j["points"]) <= POINTS_REL * j["points"], (rec.num_points3D(), j)
