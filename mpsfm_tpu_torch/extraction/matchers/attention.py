@@ -16,10 +16,15 @@ dtype, both for hd 16 and 64:
   rounded to bfloat16 for P·V, as the JAX package's bfloat16 paths do,
   and the result once to bfloat16. hd 64 takes 128-byte swizzled tiles,
   hd 16 32-byte ones. KERNEL_TC.launches counts its launches.
-- float32 operands (the parity setting): csrc/attention.cu, the flash
-  algorithm on the CUDA cores in float32 (one CTA a query tile of 64, one
-  query row a thread; TF32 stays off). KERNEL.launches counts its
-  launches.
+- float32 operands (the parity setting, and every attention of MASt3R,
+  the two-view and warp nets, DepthAnythingV2 and RoMa's DINOv2):
+  csrc/attention.cu, the flash algorithm on the CUDA cores in float32
+  (TF32 stays off). At hd 64 one CTA of 256 threads a (64 queries, head,
+  batch element): each 64 × 64 logit tile and the 64 × 64 accumulator
+  register-blocked in 4 × 4 sub-tiles a thread, the 16 threads of a row in
+  one warp (row max by shuffles, one rescale a key tile), K and V through a
+  2-stage cp.async ring, P through shared memory. At hd 16 one query row a
+  thread. KERNEL.launches counts its launches.
 
 Both skip a 64-key tile without a real key (its weights are exactly 0)
 unless the batch element has none. On a CPU tensor the wrapper runs

@@ -19,9 +19,11 @@ XLA's LU (`jnp.linalg.solve`), the port solves it by Cholesky through
 ba/cholesky.cholesky_solve, one call a batch item: on a CUDA tensor the
 hand-written K1 many kernel (csrc/cholesky_many.cu, K = 48² = 2304 at the
 official 672² on its grid route), on a CPU tensor its plain version. The
-ViT's and the decoder's attention (no mask), the convolutions and the
-correlation volumes are plain torch ops, as they are XLA ops in the JAX
-package.
+DINOv2's attention (16 heads of 64, no mask) is K4 (depth_anything.multi_head:
+csrc/attention.cu on the card, attention_plain on the CPU); the match
+decoder's (heads of 128, a width K4 has no kernel for), the convolutions
+and the correlation volumes are plain torch ops, as they are XLA ops in the
+JAX package.
 
 `RomaMatcher` is the dense-matcher interface (the reference's roma.py:
 98-117): certainty NMS by a (2r+1)² max-pool, the sample threshold, the
@@ -40,7 +42,8 @@ import torch.nn.functional as F
 from mpsfm_tpu_torch import resolve_device
 from mpsfm_tpu_torch.ba.cholesky import cholesky_solve
 from mpsfm_tpu_torch.extraction.manifest import convert_checked
-from mpsfm_tpu_torch.extraction.nets.depth_anything import IMAGENET_MEAN, IMAGENET_STD, _conv, _ln, _resize
+from mpsfm_tpu_torch.extraction.nets.depth_anything import (IMAGENET_MEAN, IMAGENET_STD, _conv, _ln, _resize,
+                                                           multi_head)
 from mpsfm_tpu_torch.extraction.priors import MissingWeightsError
 from mpsfm_tpu_torch.extraction.weights import maybe_resolve
 
@@ -75,15 +78,21 @@ def _linear(x, w, b):
     return x @ w.T + b
 
 
-def _vit_block(p, b, tok, heads):
-    """A DINOv2 block (LayerScale, exact GELU) on tokens (B, n, D)."""
+def _vit_block(p, b, tok, heads, on_k4):
+    """A DINOv2 block (LayerScale, exact GELU) on tokens (B, n, D). on_k4:
+    the attention through K4 (multi_head; DINOv2's 16 heads of 64), else
+    softmax(q kᵀ) v as torch ops (the match decoder's heads of 128, a width
+    K4 has no kernel for)."""
     B, n, Dm = tok.shape
     hd = Dm // heads
     y = _ln(tok, p[b + "norm1.weight"], p[b + "norm1.bias"])
     qkv = _linear(y, p[b + "attn.qkv.weight"], p[b + "attn.qkv.bias"]).reshape(B, n, 3, heads, hd)
-    q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))  # (B, heads, n, hd)
-    a = torch.softmax((q @ k.transpose(-1, -2)) * hd**-0.5, -1)
-    y = (a @ v).transpose(1, 2).reshape(B, n, Dm)
+    if on_k4:
+        y = multi_head(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]).reshape(B, n, Dm)
+    else:
+        q, k, v = (qkv[:, :, j].transpose(1, 2) for j in range(3))  # (B, heads, n, hd)
+        a = torch.softmax((q @ k.transpose(-1, -2)) * hd**-0.5, -1)
+        y = (a @ v).transpose(1, 2).reshape(B, n, Dm)
     tok = tok + _linear(y, p[b + "attn.proj.weight"], p[b + "attn.proj.bias"]) * p[b + "ls1.gamma"]
     y = _ln(tok, p[b + "norm2.weight"], p[b + "norm2.bias"])
     y = F.gelu(_linear(y, p[b + "mlp.fc1.weight"], p[b + "mlp.fc1.bias"]))
@@ -285,7 +294,7 @@ class RomaNet:
         tok = tok + patch_pe.reshape(1, h * w, Dv)
         tok = torch.cat([(p["dinov2.cls_token"] + cls_pe).expand(B, 1, Dv), tok], 1)
         for i in range(c["vit_depth"]):
-            tok = _vit_block(p, f"dinov2.blocks.{i}.", tok, c["vit_heads"])
+            tok = _vit_block(p, f"dinov2.blocks.{i}.", tok, c["vit_heads"], on_k4=True)
         tok = _ln(tok, p["dinov2.norm.weight"], p["dinov2.norm.bias"])
         return tok[:, 1:].reshape(B, h, w, Dv)
 
@@ -315,7 +324,7 @@ class RomaNet:
         B, h, w, Dd = x.shape
         tok = x.reshape(B, h * w, Dd)
         for i in range(c["dec_blocks"]):
-            tok = _vit_block(p, f"decoder.embedding_decoder.blocks.{i}.", tok, c["dec_heads"])
+            tok = _vit_block(p, f"decoder.embedding_decoder.blocks.{i}.", tok, c["dec_heads"], on_k4=False)
         out = _linear(tok, p["decoder.embedding_decoder.to_out.weight"], p["decoder.embedding_decoder.to_out.bias"])
         out = out.reshape(B, h, w, -1)
         return out[..., :-1], out[..., -1:]

@@ -14,8 +14,9 @@ of rounding P to bfloat16, which tests/test_torch_attention_bf16.py holds
 the JAX package's own bfloat16 path to), the output rows past N left
 untouched, and unaligned operands; the float32 kernel at MASt3R's shapes
 (hd 64, every key real, N = M = 1200: the encoder's 2 × 16 heads and a
-decoder cross-attention's 1 × 12). On the CPU: the wrapper's bfloat16
-semantics and what it refuses.
+decoder cross-attention's 1 × 12), DepthAnythingV2-vitl's (1 × 1814 × 16)
+and RoMa's DINOv2's (2 × 2305 × 16). On the CPU: the wrapper's bfloat16
+semantics and what it refuses, the probes' source edits and ptxas notes.
 """
 
 import numpy as np
@@ -197,18 +198,38 @@ def test_k4_probe_edits_the_kernel_source():
         assert k4_probe.main() == 1
 
 
+def test_k4_f32_probe_reads_ptxas_and_needs_a_card():
+    """chip_smoke.ptxas_notes (the probe's and the script's ptxas lines)
+    reads registers and spills by kernel; without a card k4_f32_probe.py
+    exits 1."""
+    import k4_f32_probe
+
+    log = ("ptxas info    : Compiling entry function '_Z21attention_tile_kernelPKf' for 'sm_90a'\n"
+           "ptxas info    : Function properties for _Z21attention_tile_kernelPKf\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers, 32 bytes smem\n")
+    assert chip_smoke.ptxas_notes(log) == [
+        "_Z21attention_tile_kernelPKf: 0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "_Z21attention_tile_kernelPKf: Used 128 registers, used 1 barriers, 32 bytes smem"]
+    if not torch.cuda.is_available():
+        assert k4_f32_probe.main([]) == 1
+
+
 # MASt3R's attentions at 640×480 (a 30×40 patch grid): the encoder's self-attention with both views batched
-# (B = 2, 16 heads) and a decoder's cross-attention (B = 1, 12 heads); N = M = 1200, not a multiple of the
-# 64-query tile, every key real
-MAST3R_SHAPES = {"encoder": (2, 1200, 16), "decoder_cross": (1, 1200, 12)}
+# (B = 2, 16 heads) and a decoder's cross-attention (B = 1, 12 heads), N = M = 1200; DepthAnythingV2-vitl's at
+# input 518 × 686 (37 × 49 patches + the class token, 16 heads); RoMa's DINOv2 at 672² (48 × 48 patches + the
+# class token, both images batched, 16 heads); none a multiple of the 64-query tile, every key real
+MAST3R_SHAPES = {"encoder": (2, 1200, 16), "decoder_cross": (1, 1200, 12), "da2_vitl": (1, 1814, 16),
+                 "roma_dinov2": (2, 2305, 16)}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", list(MAST3R_SHAPES))
 def test_k4_float32_at_mast3r_shapes(name):
     """K4's float32 kernel, launched once, against attention_plain at
-    MASt3R's shapes (hd 64, no masked key), within 2e-5; the last query
-    tile's 48 rows past N = 1200 are padding the kernel does not write."""
+    MASt3R's, DepthAnythingV2's and RoMa's DINOv2's shapes (hd 64, no
+    masked key), within 2e-5; the last query tile's rows past N are
+    padding the kernel does not write."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, N, H = MAST3R_SHAPES[name]

@@ -3,8 +3,8 @@ its configs against the YAML files, and RoMa's GP solve on K1 many.
 
 This file imports no JAX, so its card-only cases run on the card's host:
 the RoMa forward at tests/test_roma.py's TINY width on the card launches K1
-many once a batch item (its GP's K_bb solve) and agrees with the same
-forward on the CPU; K1 many at the GP's full shape (K = 48² = 2304, N = 512)
+many once a batch item (its GP's K_bb solve) and K4 float32 once a DINOv2
+block, and agrees with the same forward on the CPU; K1 many at the GP's full shape (K = 48² = 2304, N = 512)
 on a K_bb made from seeded features holds chip_smoke.k1_many_check_in_situ's
 rules against its plain version. On the CPU the same GP takes
 cholesky_solve_plain and launches nothing.
@@ -20,6 +20,7 @@ import torch
 import chip_smoke
 from mpsfm_tpu_torch.ba import cholesky
 from mpsfm_tpu_torch.config import load_cfg
+from mpsfm_tpu_torch.extraction.matchers import attention
 from mpsfm_tpu_torch.extraction.nets import roma
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,14 +62,17 @@ def test_chip_smoke_paper_nets_phase_on_the_cpu():
     no K1 many check): checkpoints written and loaded at the tiny widths,
     DSINE and RoMa on every image and pair, card against CPU against
     itself, both reconstructs to their outputs with DSINE's normals2 in the
-    depth store and a RoMa GP solve a pair."""
+    depth store and a RoMa GP solve and forward a pair; no K4 launch or
+    check on the CPU."""
     out, launches, row = chip_smoke.paper_nets_phase("cpu", {}, "small")
     full = out["full"]
     assert full["dsine_ok"] and full["roma_ok"] and full["roma_gp_launches"] == 0 and row is None
+    assert full["roma_k4_launches"] == 0 and full["roma_vit_depth"] == TINY["vit_depth"] and out["k4"] is None
     assert len(full["roma_matches"]) == 3 and full["gp_K"] == 16 * 16 and out["card_vs_cpu"]["ok"]
     lg, rm = out["pipelines"]["paper sp-lg_m3dv2"], out["pipelines"]["sp-roma-dense_m3dv2"]
     assert {"normals2", "normals2_variance"} <= set(lg["depth_keys"]) and lg["tensors"]["normals"] == ["cpu"]
-    assert rm["gp_calls"] == rm["pairs"] > 0 and rm["gp_launches"] == 0 and any(rm["dense_per_pair"])
+    assert rm["gp_calls"] == rm["pairs"] == rm["forwards"]["dense"] > 0 and rm["gp_launches"] == 0
+    assert any(rm["dense_per_pair"])
     assert launches == {"paper sp-lg_m3dv2": {}, "sp-roma-dense_m3dv2": {}}
 
 
@@ -91,17 +95,22 @@ def cuda():
 
 @pytest.mark.cuda
 def test_roma_forward_launches_k1_many_once_a_pair_on_the_card(cuda):
+    """RoMa's forward on a batch of 2 pairs: K1 many once a pair (the GP),
+    K4 float32 once a DINOv2 block (both images of every pair batched),
+    neither on the CPU; the card against the CPU."""
     rng = np.random.default_rng(1)
     xa, xb = (rng.normal(size=(2, 112, 112, 3)).astype(np.float32) for _ in range(2))
     out = {}
     for dev in (cuda, torch.device("cpu")):
         net = roma.RomaNet(TINY, device=dev)
         net.init_random(2)
-        n = cholesky.KERNEL_MANY.launches
+        n, k = cholesky.KERNEL_MANY.launches, attention.KERNEL.launches
         with torch.no_grad():
             flow, cert = net.forward(torch.as_tensor(xa, device=dev), torch.as_tensor(xb, device=dev))
-        out[dev.type] = (flow.cpu().numpy(), cert.cpu().numpy(), cholesky.KERNEL_MANY.launches - n)
+        out[dev.type] = (flow.cpu().numpy(), cert.cpu().numpy(), cholesky.KERNEL_MANY.launches - n,
+                         attention.KERNEL.launches - k)
     assert out["cuda"][2] == 2 and out["cpu"][2] == 0
+    assert out["cuda"][3] == TINY["vit_depth"] and out["cpu"][3] == 0
     assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= chip_smoke.ROMA_FLOW_TOL
     assert np.abs(out["cuda"][1] - out["cpu"][1]).max() <= chip_smoke.ROMA_FLOW_TOL * max(1, np.abs(out["cpu"][1]).max())
 
