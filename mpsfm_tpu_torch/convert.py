@@ -4,7 +4,7 @@ What carries over is the state the JAX package hands between its device
 programs, its cameras and poses, the depth-consistency check's grids and
 per-pair rows, the scene's host state, and the weights of the neural
 extraction (SuperPoint, LightGlue, NetVLAD, Metric3Dv2, DSINE, RoMa, MASt3R,
-DepthAnythingV2, the two-view and warp nets), as the checkpoint layouts the
+DepthAnythingV2, DepthPro, the two-view and warp nets, MonoViT), as the checkpoint layouts the
 port loads. Each device converter takes host arrays, e.g.
 `{k: np.asarray(v) for k, v in nt._asdict().items()}` of a JAX NamedTuple,
 and returns tensors on `device` (the card unless the caller asks for the
@@ -342,6 +342,13 @@ def depth_anything_state_dict(jparams) -> dict:
     return {k: _cpu32(v) for k, v in jparams.items()}
 
 
+def depth_pro_state_dict(jparams) -> dict:
+    """JAX DepthPro params (a flat dict under the HF names) -> a state dict
+    of CPU tensors with the same names, the checkpoint layout the port's
+    DepthPro loads (an identity on names)."""
+    return {k: _cpu32(v) for k, v in jparams.items()}
+
+
 def flax_state_dict(jparams) -> dict:
     """A Flax param tree ({"params": {module: {...}}} or its inner dict) ->
     the state dict of the port's torch modules that carry the Flax names
@@ -368,5 +375,6 @@ def flax_state_dict(jparams) -> dict:
     return sd
 
 
-# JAX TwoViewNet and WarpNet params (Flax trees) -> nets/two_view.TwoViewNet's and nets/warp.WarpNet's state dicts
-two_view_state_dict = warp_state_dict = flax_state_dict
+# JAX TwoViewNet, WarpNet and MonoViT params (Flax trees) -> nets/two_view.TwoViewNet's, nets/warp.WarpNet's and
+# nets/mono.MonoViT's state dicts
+two_view_state_dict = warp_state_dict = mono_state_dict = flax_state_dict

@@ -9,8 +9,10 @@
 // byte a key (nonzero = a real key), out (B, N, H, HD), all contiguous.
 // LightGlue calls it with HD = 64 (the official 256 = 4 x 64) in its self
 // blocks (N = M) and cross blocks (N != M in general), MASt3R, the two-view
-// and warp nets, DepthAnythingV2 and RoMa's DINOv2 with HD = 64 and every key
-// real; HD = 16 is the tests' LightGlue (64 = 4 x 16).
+// and warp nets, DepthAnythingV2, DepthPro and RoMa's DINOv2 with HD = 64 and
+// every key real; HD = 16 is the tests' LightGlue (64 = 4 x 16); HD = 48 the
+// framework's trained prior (nets/mono.py at train_mono's default net, 96 =
+// 2 x 48, 81 tokens of a 160 x 128 frame), forward and training step alike.
 //
 // Both kernels run the flash algorithm in float32 on the CUDA cores (no TF32):
 // the keys go by tiles of 64, a running max m and sum l a query row, the
@@ -45,11 +47,17 @@
 // V's 4 columns a key). Shared memory: Q 17 KB, P 17 KB and per stage K 17 KB
 // + V 16 KB, 100 KB in all, so two CTAs share an SM (16 warps).
 //
-// HD = 16, attention_row_kernel (the first float32 kernel's body, kept for
-// the tests' LightGlue): one CTA of 64 threads per 64-query tile, one query
-// row a thread, its q and accumulator in registers; each tile's K and V rows
-// staged in shared memory and read as float4 broadcasts, 8 keys between two
-// rescales.
+// HD = 16 and 48, attention_row_kernel (the first float32 kernel's body, kept
+// for the tests' LightGlue and taken for the trained prior): one CTA of 64
+// threads per 64-query tile, one query row a thread, its q and accumulator in
+// registers; each tile's K and V rows staged in shared memory and read as
+// float4 broadcasts, 8 keys between two rescales. At HD = 48 the trained
+// prior's calls (8 x 81 tokens x 2 heads) are a few microseconds of work, so
+// launches bound them: on an H100 (k4_f32_probe.py --hd48) this kernel took
+// 0.038 ms there against 0.105-0.117 ms for q, k and v zero-padded to 64 on
+// the tile kernel (three pads and a slice around it) and 0.067 ms for SDPA;
+// from a few hundred tokens the tile kernel's reuse wins (769 tokens: 0.090
+// padded against 0.274 here).
 //
 // What bounds it on the H100: 4 B H N M' HD FLOP (two products of N x M' x HD
 // FMA, M' the real keys) against 67 TFLOP/s of float32 outside the tensor
@@ -66,7 +74,7 @@
 
 #include <cuda_runtime.h>
 
-// ---------------------------------------------------------------- HD = 16
+// ---------------------------------------------------------------- HD = 16, 48
 
 #define ATT_BQ 64  // query rows of a CTA, one a thread
 #define ATT_BK 64  // keys of a staged tile
@@ -388,6 +396,9 @@ extern "C" int attention_f32(const void* q, const void* k, const void* v, const 
     } else if (hd == 16) {
         const dim3 grid((N + ATT_BQ - 1) / ATT_BQ, H, B);
         attention_row_kernel<16><<<grid, ATT_BQ, 0, s>>>(qq, kk, vv, mm, oo, N, M, H, scale);
+    } else if (hd == 48) {
+        const dim3 grid((N + ATT_BQ - 1) / ATT_BQ, H, B);
+        attention_row_kernel<48><<<grid, ATT_BQ, 0, s>>>(qq, kk, vv, mm, oo, N, M, H, scale);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -13,10 +13,9 @@ either package reads) or directory stores (``cache_format: npy``, for a
 host without h5py); utils.io.open_store picks by the path's suffix. The
 detectors (classical, SuperPoint), the matchers (the mutual NN, LightGlue,
 the dense NCC flow, RoMa, MASt3R and the two-view and warp classes),
-NetVLAD retrieval, the Metric3Dv2, DSINE and DepthAnythingV2 priors, the
-two-view depth of MASt3R and the two-view class, and the sky masks run on
-``device``. Not ported yet, and raising: the other neural priors
-(DepthPro, vit_mono; ROADMAP queue 1 item 6).
+NetVLAD retrieval, the Metric3Dv2, DSINE, DepthAnythingV2, DepthPro and
+vit_mono priors, the two-view depth of MASt3R and the two-view class, and
+the sky masks run on ``device``.
 """
 
 from __future__ import annotations

@@ -49,6 +49,66 @@ def resize_linear(X, shape):
     return Y[0].permute(1, 2, 0) if X.ndim == 3 else Y[0, 0]
 
 
+def _area_tab(n_src, n_dst, scale):
+    """OpenCV's computeResizeAreaTab as a (n_dst, n_src) matrix: each output
+    pixel the mean of its box [d·scale, (d+1)·scale) of input pixels, the
+    edge pixels weighted by their covered fraction (float32 weights, as
+    OpenCV keeps them)."""
+    A = np.zeros((n_dst, n_src), np.float64)
+    for d in range(n_dst):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_src - f1)
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        s2 = min(s2, n_src - 1)
+        s1 = min(s1, s2)
+        if s1 - f1 > 1e-3:
+            A[d, s1 - 1] = np.float32((s1 - f1) / cell)
+        A[d, s1:s2] = np.float32(1.0 / cell)
+        if f2 - s2 > 1e-3:
+            A[d, s2] = np.float32(min(min(f2 - s2, 1.0), cell) / cell)
+    return A
+
+
+def _area_linear_tab(n_src, n_dst, scale, inv):
+    """OpenCV's INTER_AREA taps off the area path (a side enlarged): two taps
+    at floor(d·scale), the second weighted by the fraction of the output
+    pixel past the input pixel's end (float32, as OpenCV computes it), the
+    border clamped."""
+    A = np.zeros((n_dst, n_src), np.float64)
+    for d in range(n_dst):
+        s = int(np.floor(d * scale))
+        f = np.float32((d + 1) - (s + 1) * inv)
+        f = np.float32(0.0) if f <= 0 else f - np.float32(np.floor(f))
+        if s < 0:
+            s, f = 0, np.float32(0.0)
+        if s >= n_src - 1:
+            s, f = n_src - 1, np.float32(0.0)
+        A[d, s] += np.float32(1.0) - f
+        if f:
+            A[d, s + 1] += f
+    return A
+
+
+def resize_area(X, shape):
+    """OpenCV's resize INTER_AREA of X (H, W[, C]) to shape (h, w), in X's
+    dtype, computed in float64: where neither side grows, the box filter
+    with fractional edge weights (computeResizeAreaTab; an integer ratio, its
+    fast path, is the same plain block mean); else OpenCV's area-mode linear
+    taps on both sides."""
+    H, W = X.shape[:2]
+    h, w = int(shape[0]), int(shape[1])
+    inv_x, inv_y = w / W, h / H
+    sx, sy = 1.0 / inv_x, 1.0 / inv_y
+    if sx >= 1 and sy >= 1:
+        Ay, Ax = _area_tab(H, h, sy), _area_tab(W, w, sx)
+    else:
+        Ay, Ax = _area_linear_tab(H, h, sy, inv_y), _area_linear_tab(W, w, sx, inv_x)
+    Ay, Ax = (torch.as_tensor(a, device=X.device) for a in (Ay, Ax))
+    Y = torch.einsum("hH,HW...,wW->hw...", Ay, X.to(torch.float64), Ax)
+    return Y.to(X.dtype)
+
+
 def _filter4_even(X, dim):
     """[1, 3, 3, 1] / 8 along dim at the even positions 0, 2, ..., taps at
     offsets -1 .. 2 (anchor 1), the border replicated, the taps added in

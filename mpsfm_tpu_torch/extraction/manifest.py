@@ -11,15 +11,18 @@ front, instead of failing somewhere inside a forward pass.
 The pinned files live in `mpsfm_tpu_torch/extraction/manifests/<name>.json`
 as {key: [dims...]}, byte-equal copies of the JAX package's for the nets
 the port runs (superpoint, lightglue, netvlad, metric3dv2-{small,large,
-giant2}, dsine, roma-outdoor, roma-dinov2, mast3r, depthanythingv2-vitl);
+giant2}, dsine, roma-outdoor, roma-dinov2, mast3r, depthanythingv2-vitl,
+depthpro);
 the small classic nets also have closed-form manifest functions here.
 
 Official files covered: superpoint_v1.pth, superpoint_lightglue.pth,
 metric_depth_vit_{small,large,giant2}_800k.pth, Pitts30K VGG16-NetVLAD
 (torch export), dsine.pth (v02_kappa), roma_outdoor.pth and
 dinov2_vitl14_pretrain.pth (each file against its own manifest),
-MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth and
-depth_anything_v2_metric_vkitti_vitl.pth.
+MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth,
+depth_anything_v2_metric_vkitti_vitl.pth and DepthPro in HuggingFace's
+DepthProForDepthEstimation naming (apple/DepthPro-hf; 1410 keys, 951.9 M
+parameters).
 """
 
 from __future__ import annotations

@@ -10,13 +10,16 @@ mpsfm_tpu/extraction/priors.py).
   device; ``dsine*`` (``dsine-kappa``, ``dsine-kappa-fc``): DSINE's normals
   (nets/dsine.py) on the device; ``depthanythingv2-*`` (``-outdoor``,
   ``-indoor``): DepthAnythingV2's metric depth (nets/depth_anything.py) on
-  the device. Each once ``conf.weights_path`` names a checkpoint (a file,
-  or a registry name whose file is in $MPSFM_WEIGHTS_DIR or
-  ./local/weights); without one, calling the backend raises
+  the device; ``depthpro``: DepthPro's metric depth (nets/depth_pro.py) on
+  the device, normals derived from it; any other name: the framework's
+  ViT-DPT net (nets/mono.py). Each once ``conf.weights_path`` names a
+  checkpoint (a file, or a registry name whose file is in
+  $MPSFM_WEIGHTS_DIR or ./local/weights); without one, calling the backend
+  raises MissingWeightsError;
+* ``vit_mono*``: the framework's ViT-DPT depth + normal net (nets/mono.py,
+  trained on the scene by nets/train_mono.py) on the device, from
+  ``conf.weights_path``; without weights, calling it raises
   MissingWeightsError.
-
-The other neural backends (DepthPro, the ViT-DPT net ``vit_mono``) are not
-ported yet: asking for one raises.
 """
 
 from __future__ import annotations
@@ -38,7 +41,6 @@ CALIBRATIONS = {
     "mast3r": {"depth_uncertainty": None, "prior_std_multiplier": 0.862},
     "measured": {"depth_uncertainty": None, "prior_uncertainty": True},
 }
-NOT_PORTED = "not ported yet (ROADMAP queue 1 item 6: the rest of the neural extraction)"
 
 
 def normals_from_depth(depth: np.ndarray, fx, fy, cx, cy) -> np.ndarray:
@@ -131,8 +133,8 @@ class SyntheticOracleBackend:
 
 # Architecture presets of the named neural backends: metric3dv2-* route to the exact Metric3Dv2
 # (nets/metric3d.py: giant2 ViT-g 1536x40, large ViT-L 1024x24, small ViT-S 384x12). The JAX package's
-# entries whose keys their nets do not read (depthpro, not ported yet; depthanythingv2-outdoor, whose "dim" is
-# vitl's own; dsine) are kept for parity.
+# entries whose keys their nets do not read (depthpro's depth_blocks, num_heads and feat, MonoViT's names: DepthPro
+# reads dim only, its official 1024; depthanythingv2-outdoor, whose "dim" is vitl's own; dsine) are kept for parity.
 ARCH_PRESETS = {
     "metric3dv2-giant2": {"encoder": "vit_giant2_reg"},
     # normals-only variant (reference defaults/*: normals from the default metric3dv2, its depth not kept)
@@ -146,9 +148,10 @@ ARCH_PRESETS = {
 
 
 class NeuralDepthBackend:
-    """Named neural depth/normal backends: the metric3dv2 family, DSINE and
-    DepthAnythingV2.
-    Per-name uncertainty calibrations and arch presets are applied; the
+    """Named neural depth/normal backends: the metric3dv2 family, DSINE,
+    DepthAnythingV2, DepthPro and, for any other name, MonoViT
+    (ViTMonoBackend). Per-name uncertainty calibrations and arch presets
+    are applied; the
     ``-fc`` variants add the flipped pass. The net activates once
     ``conf.weights_path`` is a file; without it, calling the backend
     raises MissingWeightsError (the repository ships no checkpoint).
@@ -161,8 +164,6 @@ class NeuralDepthBackend:
         self.name = name
         conf = dict(conf or {})
         base = name[:-3] if name.endswith("-fc") else name
-        if not base.startswith(("metric3dv2", "dsine", "depthanythingv2")):
-            raise NotImplementedError(f"prior backend {name!r}: {NOT_PORTED}")
         for k, v in ARCH_PRESETS.get(base, {}).items():
             conf.setdefault(k, v)
         for k, v in CALIBRATIONS.get(base, {}).items():
@@ -185,9 +186,14 @@ class NeuralDepthBackend:
                     conf["weights_path"] = wp
                     if base.startswith("depthanythingv2"):
                         self.backend = _DA2Backend(conf, base, device)
+                    elif base == "depthpro":
+                        self.backend = _DepthProBackend(conf, device)
+                    elif base.startswith("metric3dv2"):
+                        self.backend = _Metric3DBackend(conf, device)
+                    elif base.startswith("dsine"):
+                        self.backend = _DSINEBackend(conf, device)
                     else:
-                        backend = _DSINEBackend if base.startswith("dsine") else _Metric3DBackend
-                        self.backend = backend(conf, device)
+                        self.backend = _vit_mono(conf, device)
                 else:
                     self._missing = f" weights_path {wp!r} is not a file."
 
@@ -222,6 +228,35 @@ class _DA2Backend:
     def __call__(self, image_rgb, intrinsics=None, **kw):
         d = np.asarray(self.net.infer_image(image_rgb), np.float64)
         valid = d > 0
+        out = {"depth": d, "depth_variance": (d * self.rel_unc) ** 2, "valid": valid}
+        if intrinsics is not None:
+            fx, fy, cx, cy = intrinsics
+            fill = np.median(d[valid]) if valid.any() else 1.0
+            out["normals"] = normals_from_depth(np.where(valid, d, fill), fx, fy, cx, cy)
+            out["normals_variance"] = np.full(d.shape, (np.deg2rad(8.0)) ** 2)
+        return out
+
+
+class _DepthProBackend:
+    """DepthPro -> metric depth priors: the intrinsics' focal, mean(fx, fy)
+    as the reference's wrapper takes it (else the FOV head's) for the
+    canonical inverse depth's metric conversion, the variance from the
+    estimator's calibration, (d · 0.0875)², normals derived geometrically.
+    Replaces the reference wrapper
+    mpsfm/extraction/imagewise/geometry/models/depth/depthpro.py."""
+
+    def __init__(self, conf, device="cuda"):
+        from mpsfm_tpu_torch.extraction.nets.depth_pro import DepthPro
+
+        self.net = DepthPro(conf, device=device)
+        if self.net.params is None:
+            self.net.init_random(0)
+        self.rel_unc = conf.get("depth_uncertainty", 0.0875)
+
+    def __call__(self, image_rgb, intrinsics=None, **kw):
+        f_px = 0.5 * (intrinsics[0] + intrinsics[1]) if intrinsics is not None else None
+        d = np.asarray(self.net.infer_image(image_rgb, f_px=f_px)["depth"], np.float64)
+        valid = np.isfinite(d) & (d > 0)
         out = {"depth": d, "depth_variance": (d * self.rel_unc) ** 2, "valid": valid}
         if intrinsics is not None:
             fx, fy, cx, cy = intrinsics
@@ -291,6 +326,12 @@ class _DSINEBackend:
         return out
 
 
+def _vit_mono(conf=None, device="cuda"):
+    from mpsfm_tpu_torch.extraction.nets.mono import ViTMonoBackend
+
+    return ViTMonoBackend(conf, device=device)
+
+
 BACKENDS = {
     "measured": MeasuredDepthBackend,
     "oracle": SyntheticOracleBackend,
@@ -299,10 +340,12 @@ BACKENDS = {
 
 def get_prior_backend(name: str, conf=None, device="cuda"):
     """The backend of a config name (case-insensitive, as the reference's
-    DSINE-kappa-fc); the neural ones run on `device`."""
+    DSINE-kappa-fc); the neural ones run on `device`. ``vit_mono`` and every
+    name it begins (the JAX package's BACKENDS entry and prefix) take the
+    framework's ViT-DPT net (ViTMonoBackend) from conf.weights_path."""
     name = str(name).lower()
+    if name.startswith("vit_mono"):
+        return _vit_mono(conf, device=device)
     if name in BACKENDS:
         return BACKENDS[name](conf)
-    if name.startswith("vit_mono"):
-        raise NotImplementedError(f"prior backend {name!r}: {NOT_PORTED}")
     return NeuralDepthBackend(name, conf, device=device)

@@ -118,7 +118,10 @@ class ReconstructionManager(BaseClass):
             # base.py:135-141); downstream COLMAP tooling defaults to it
             colmap_io.write_binary(rec, out)
             colmap_io.write_depths(rec, io.store_path(out, "depths", self.conf.cache_format))
-        self.log("3d.html is not written: utils/viz.py is not ported (ROADMAP queue 1 item 6)", level=1)
+        if self.conf.verbose >= 1:
+            from mpsfm_tpu_torch.utils.viz import write_scene_html
+
+            write_scene_html(rec, out / "3d.html")
         return rec, ok
 
     def _load_priors(self, rec, pairs):

@@ -220,8 +220,8 @@ def test_measured_priors_equal_jax(rng):
         assert j.keys() == t.keys()
         for k in j:
             assert np.abs(np.asarray(j[k], np.float64) - np.asarray(t[k], np.float64)).max() <= 1e-12, (backend, k)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tpriors.get_prior_backend("depthpro")
+    with pytest.raises(tpriors.MissingWeightsError, match="depthpro"):  # the official width, no checkpoint
+        tpriors.get_prior_backend("depthpro", device="cpu")(None)
 
 
 def test_simple_parser_equals_jax(scene_dir, tmp_path):
@@ -325,10 +325,10 @@ def test_extraction_caches_read_across_packages(scene_dir, tmp_path, monkeypatch
 
 
 def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
-    """What is not ported raises naming item 6: vit_mono. MASt3R and
-    DepthAnythingV2 are ported: without weights at the official width the
-    mast3r dense matcher and the depthanythingv2-outdoor prior raise
-    MissingWeightsError, and at tests/test_mast3r.py's TINY width (the
+    """Every backend is ported; without weights at the official width the
+    vit_mono prior, the mast3r dense matcher and the depthanythingv2-outdoor
+    prior raise MissingWeightsError (vit_mono's run at tiny widths is
+    test_depthpro_and_vit_mono_stores_equal_jax), and at tests/test_mast3r.py's TINY width (the
     seeded draw both packages take) and on a tiny DepthAnythingV2
     checkpoint the run writes the JAX package's dense store (as sets) and
     depth store (within 1e-4 relative). DSINE and RoMa are ported: without
@@ -342,7 +342,7 @@ def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
 
     parser = TParser(scene_dir)
     pair = [("im00.png", "im01.png")]
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(tpriors.MissingWeightsError, match="vit_mono"):
         TExtraction({"depth": "vit_mono"}, parser, tmp_path / "c", device="cpu").extract_mono()
     with pytest.raises(tpriors.MissingWeightsError, match="MASt3R_ViTLarge_BaseDecoder_512_catmlpdpt_metric.pth"):
         TExtraction({"dense_matcher": "mast3r"}, parser, tmp_path / "c", device="cpu").extract_dense_matches(pair)
@@ -387,3 +387,51 @@ def test_extraction_refuses_what_is_not_ported(scene_dir, tmp_path):
         TExtraction({"dense_matcher": "roma"}, parser, tmp_path / "c", device="cpu").extract_dense_matches(
             [("im00.png", "im01.png")])
     assert tbase.Extraction({}, parser, tmp_path / "c", device="cpu").load_mask("im00.png") is None
+
+
+@pytest.mark.parametrize("backend", ["depthpro", "vit_mono"])
+def test_depthpro_and_vit_mono_stores_equal_jax(scene_dir, tmp_path, backend):
+    """The two priors that raised before slice 17, at tiny widths on one
+    checkpoint both packages load: DepthPro at tests/test_torch_depth_pro.py's
+    TINY (the port's draw, its last layer's bias 1), MonoViT at
+    tests/test_torch_mono.py's NET (the Flax init in the timm naming, with
+    resize_long and flip-consistency). The depth stores of extract_mono
+    hold the same keys, every map within 1e-4 of its largest value (the
+    depth and its variance as the inverse depth they come from where the
+    net is DepthPro), the validity masks equal."""
+    from mpsfm_tpu.extraction.nets.mono import MonoViT as JMonoViT
+    from mpsfm_tpu_torch import convert
+    from mpsfm_tpu_torch.extraction.nets.depth_pro import DepthPro
+    from mpsfm_tpu_torch.extraction.nets.train_mono import save_mono_params
+    from test_torch_depth_pro import INVERSE, TINY as DP_TINY
+    from test_torch_mono import NET
+
+    if backend == "depthpro":
+        net = DepthPro(DP_TINY, device="cpu")
+        sd = convert.depth_pro_state_dict({k: v.numpy() for k, v in net.init_random(0).items()})
+        sd["head.layers.4.bias"] = torch.ones(1)
+        torch.save(sd, tmp_path / "depth_pro.pt")
+        conf = {"depth": "depthpro", "depth_conf": {**DP_TINY, "weights_path": str(tmp_path / "depth_pro.pt")}}
+        inverse = INVERSE
+    else:
+        params = JMonoViT(**NET).init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+        save_mono_params(convert.mono_state_dict(params), tmp_path / "mono.pth")
+        conf = {"depth": "vit_mono", "depth_conf": {**NET, "weights_path": str(tmp_path / "mono.pth"),
+                                                     "resize_long": 160, "flip_consistency": True}}
+        inverse = {}
+    parser = TParser(scene_dir)
+    tex = TExtraction(conf, parser, tmp_path / "port", device="cpu")
+    jex = JExtraction(conf, JParser(scene_dir), tmp_path / "jax")
+    tex.extract_mono()
+    jex.extract_mono()
+    for name in parser.image_names()[:2]:
+        got, want = tio.get_mono_map(tex.paths["depth"], name), jio.get_mono_map(jex.paths["depth"], name)
+        assert got.keys() == want.keys() and {"depth", "depth_variance", "normals", "valid"} <= set(got)
+        for k in want:
+            x, y = np.asarray(want[k]), np.asarray(got[k])
+            if x.dtype == bool:
+                np.testing.assert_array_equal(x, y, err_msg=k)
+                continue
+            inv = inverse.get(k, lambda a: a)
+            x, y = inv(x.astype(np.float64)), inv(y.astype(np.float64))
+            assert np.abs(x - y).max() <= 1e-4 * np.abs(x).max(), (name, k)

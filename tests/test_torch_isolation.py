@@ -66,7 +66,9 @@ need = {"mpsfm_tpu_torch.ba.covariance", "mpsfm_tpu_torch.integration.bini_diag"
         "mpsfm_tpu_torch.extraction.features.superpoint", "mpsfm_tpu_torch.extraction.matchers.attention",
         "mpsfm_tpu_torch.extraction.matchers.lightglue", "mpsfm_tpu_torch.extraction.retrieval",
         "mpsfm_tpu_torch.extraction.nets", "mpsfm_tpu_torch.extraction.nets.depth_anything",
-        "mpsfm_tpu_torch.extraction.nets.metric3d"}
+        "mpsfm_tpu_torch.extraction.nets.metric3d", "mpsfm_tpu_torch.extraction.nets.depth_pro",
+        "mpsfm_tpu_torch.extraction.nets.mono", "mpsfm_tpu_torch.extraction.nets.train_mono",
+        "mpsfm_tpu_torch.utils.viz", "mpsfm_tpu_torch.vars"}
 # the pinned manifests are the port's own copies, not the JAX package's files
 from mpsfm_tpu_torch.extraction import manifest
 bad += [] if manifest.MANIFEST_DIR.parent.parent.name == "mpsfm_tpu_torch" else [str(manifest.MANIFEST_DIR)]

@@ -19,7 +19,7 @@ from mpsfm_tpu_torch.extraction import manifest as tman
 from mpsfm_tpu_torch.extraction import weights as tweights
 
 PORTED = ["superpoint", "lightglue", "netvlad", "metric3dv2-small", "metric3dv2-large", "metric3dv2-giant2", "dsine",
-          "roma-outdoor", "roma-dinov2", "mast3r", "depthanythingv2-vitl"]
+          "roma-outdoor", "roma-dinov2", "mast3r", "depthanythingv2-vitl", "depthpro"]
 
 
 @pytest.mark.parametrize("name", PORTED)

@@ -170,16 +170,18 @@ def test_chip_smoke_mapping_on_the_cpu():
         chip_smoke.mapping_summary(rec, ok, mapper, truth, 10 * rec.num_points3D())
 
 
-@pytest.mark.parametrize("fault", [None, "reordered", "block", "noise"])
+@pytest.mark.parametrize("fault", [None, "reordered", "block", "noise", "lost_tile"])
 def test_chip_smoke_k1_many_check_on_an_ill_conditioned_system(monkeypatch, fault):
     """chip_smoke.k1_many_check with the float64 reference, on a system
     scaled as the mapping phase's point covariances' (diagonal 1 .. 1e9),
     with the plain solve in the kernel's place: it passes as it is and as
     another float32 order of the same solve (the plain solve on a copy of S
     at float32's rounding, about 0.5 from the plain version at max |X| 2e6,
-    far past K1_TOL), and fails with one block of rows 5% off (a missed
-    tile) or with a 1e-4 relative noise (a kernel less accurate than its
-    plain version)."""
+    far past K1_TOL), and fails with one block of rows 5% off, with a 1e-4
+    relative noise (a kernel less accurate than its plain version) or with
+    one 32 × 32 tile of the first panel's trailing update skipped
+    (chip_smoke.k1_lost_tile: its backward error ~1.6e-2, the bound
+    K·2⁻²³ = 1.1e-5)."""
     from mpsfm_tpu_torch.ba import cholesky
 
     rng = np.random.default_rng(0)
@@ -193,7 +195,7 @@ def test_chip_smoke_k1_many_check_on_an_ill_conditioned_system(monkeypatch, faul
         monkeypatch.setattr(cholesky.KERNEL_MANY, "launches", cholesky.KERNEL_MANY.launches + 1)
         if fault == "reordered":
             S_ = chip_smoke.rounding_ensemble(S_, 2, seed=1)[1]
-        X = cholesky.cholesky_solve_plain(S_, B_).clone()
+        X = (chip_smoke.k1_lost_tile if fault == "lost_tile" else cholesky.cholesky_solve_plain)(S_, B_).clone()
         if fault == "block":
             X[40:72] *= 1.05
         elif fault == "noise":
@@ -210,6 +212,31 @@ def test_chip_smoke_k1_many_check_on_an_ill_conditioned_system(monkeypatch, faul
     else:
         with pytest.raises(AssertionError, match="K1 many disagrees"):
             chip_smoke.k1_many_check(S, B, chip_smoke.K1_ILL_REL, fault, f64=True)
+
+
+def test_k1_many_flake_probe_rules_on_the_cpu():
+    """k1_many_flake_probe.py's two rules with the plain solve in the
+    kernel's place, on a pipeline-like system (K = 48, κ ~1e9, padded zero
+    columns): both pass it, the repaired rule a copy of it at float32's
+    rounding too; both fail the planted lost tile (chip_smoke.k1_lost_tile);
+    the backward error counts a padded column (x = b = 0) as 0."""
+    import k1_many_flake_probe as probe
+    from mpsfm_tpu_torch.ba import cholesky
+
+    rng = np.random.default_rng(1)
+    K, N = 48, 200
+    A = rng.normal(size=(K, K))
+    D = np.logspace(0, 4.5, K)
+    S = torch.tensor(D[:, None] * (A @ A.T / K + np.eye(K)) * D[None], dtype=torch.float32)
+    B = torch.tensor(rng.normal(size=(K, N)) * 1e6, dtype=torch.float32)
+    B[:, N // 2:] = 0  # a bucket's padding
+    plain = cholesky.cholesky_solve_plain
+    assert probe.old_rule(S, B, plain, plain)[0]
+    for S_t in chip_smoke.rounding_ensemble(S, 2, seed=3):
+        assert probe.new_rule(S_t, B, plain, plain)[0]
+    assert not probe.old_rule(S, B, chip_smoke.k1_lost_tile, plain)[0]
+    ok, eta, eta_plain = probe.new_rule(S, B, chip_smoke.k1_lost_tile, plain)
+    assert not ok and eta > 1e3 * eta_plain and np.isfinite(eta_plain)
 
 
 @pytest.mark.cuda

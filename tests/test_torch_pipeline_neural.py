@@ -35,6 +35,8 @@ packages.
     depth heads set to a plane at depth 5; the Metric3Dv2-normals at TINY):
     from the JAX run's caches (JAX's registration draws) the port registers
     the JAX run's images in its order with its points.
+(f) sp-lg_depthpro.yaml and the vit_mono prior, likewise (DepthPro and
+    MonoViT at tiny widths, their depth heads set to a plane at depth 5).
 """
 
 import json
@@ -47,6 +49,7 @@ import torch
 
 import chip_smoke
 import jax
+import jax.numpy as jnp
 from mpsfm_tpu.extraction.features.superpoint import SuperPoint as JSuperPoint
 from mpsfm_tpu.extraction.matchers.lightglue import LightGlue as JLightGlue
 from mpsfm_tpu.datasets.simple import SimpleParser as JParser
@@ -458,3 +461,91 @@ def test_mast3r_and_da2_configs_decide_as_jax(jax_run, tmp_path, name):
     assert bool(ok) == j["ok"] and order == j["order"] and sorted(rec.reg_image_ids()) == j["registered"], (order, j)
     assert len(j["registered"]) >= 2, j
     assert abs(rec.num_points3D() - j["points"]) <= POINTS_REL * j["points"], (rec.num_points3D(), j)
+
+
+PRIOR_CONFIGS = ["sp-lg_depthpro", "vit_mono"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", PRIOR_CONFIGS)
+def test_depthpro_and_vit_mono_configs_decide_as_jax(jax_run, tmp_path, name):
+    """(f) As (e), for the priors of slice 17 on the render without its
+    sensor depth: sp-lg_depthpro.yaml with DepthPro at
+    tests/test_torch_depth_pro.py's TINY (the port's draw), and the
+    neural conf of (b) with the vit_mono prior at tests/test_torch_mono.py's
+    NET (the Flax init, in the timm naming save_mono_params writes), both
+    with the depth heads' last layer set to a plane at depth 5 (DepthPro's
+    inverse depth f / (5 W); MonoViT's softplus at the canonical focal, its
+    confidence 0.97). From the JAX run's caches (JAX's registration draws)
+    the port registers the JAX run's images in its order with its points
+    (within 1% or one point: sp-lg_depthpro's map holds 32 in the JAX run,
+    33 in the port's)."""
+    from mpsfm_tpu.extraction.nets.mono import MonoViT as JMonoViT
+    from mpsfm_tpu_torch.extraction.nets.depth_pro import DepthPro
+    from mpsfm_tpu_torch.extraction.nets.train_mono import save_mono_params
+    from test_torch_depth_pro import TINY as DP_TINY
+    from test_torch_mono import NET
+    from test_torch_pipeline_dense import merged as merged_conf
+    from test_torch_registration import jax_draws
+
+    ck = jax_run["ckpt"]
+    tiny_m3d = {k: v for k, v in TINY.items() if k != "encoder"}
+    W, f = 320, 260.0  # the render's width and focal
+    if name == "sp-lg_depthpro":
+        cfg = json.loads(json.dumps(load_cfg(ROOT / "configs" / f"{name}.yaml")))
+        sd = convert.depth_pro_state_dict({k: v.numpy() for k, v in DepthPro(DP_TINY, device="cpu").init_random(0).items()})
+        sd["head.layers.4.weight"].zero_()
+        sd["head.layers.4.bias"].fill_(f / (5.0 * W))
+        torch.save(sd, tmp_path / "depth_pro.pt")
+        over = {"extractors": {"n_retrieval": 3, "resize_max": 0,
+                               "feature_conf": {"weights_path": str(ck["features"]), "max_keypoints": 1024},
+                               "matcher_conf": {"weights_path": str(ck["matcher"]), **LG},
+                               "normals_conf": {"weights_path": str(ck["depth"]), "encoder": "vit_small_reg",
+                                                **tiny_m3d},
+                               "depth_conf": {**DP_TINY, "weights_path": str(tmp_path / "depth_pro.pt")}}}
+    else:
+        cfg = conf_for(ck)
+        params = JMonoViT(**NET).init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)))
+        sd = convert.mono_state_dict(params)
+        for head, bias in (("depth_head", np.log(np.expm1(5.0))), ("conf_head", np.log(0.97 / 0.03))):
+            sd[f"{head}.out.weight"].zero_()
+            sd[f"{head}.out.bias"].fill_(float(bias))
+        save_mono_params(sd, tmp_path / "mono.pth")
+        over = {"extractors": {"depth": "vit_mono",
+                               "depth_conf": {**NET, "weights_path": str(tmp_path / "mono.pth"), "canonical_focal": f}}}
+    over = merged_conf(over, {"mapper": {"int_covs": False, "ba": {"max_iters": 10}, "registration": {"num_hyp": 256}},
+                              "image_priors": {"cg_max_iter": 150, "max_iter": 3}})
+    shutil.copytree(jax_run["data"], tmp_path / "scene")
+    shutil.rmtree(tmp_path / "scene" / "depth")  # no sensor depth: the priors come from the nets
+    (tmp_path / "conf.json").write_text(json.dumps(merged_conf(cfg, over)))
+    scene_path = tmp_path / "scene"
+    j = run_jax_modes([(name, str(scene_path), str(tmp_path / "conf.json"), str(tmp_path / "jax_out"))])[name]
+    cache = scene_path / "cache"
+    depth = "depthpro" if name == "sp-lg_depthpro" else "vit_mono"
+    assert f"depth-{depth}.h5" in {p.name for p in cache.iterdir()}
+    before = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
+    verified, kept = [], {}
+    estimate, base = correspondences.estimate_two_view_geometry_batch, tpipeline.MpsfmMapper
+
+    def verify(pairs, *a, **k):
+        verified.append(len(pairs))
+        return estimate(pairs, *a, **k)
+
+    def mapper(*a, **k):
+        kept["mapper"] = base(*a, **k)
+        return kept["mapper"]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(treg, "_draw", jax_draws)
+        mp.setattr(correspondences, "estimate_two_view_geometry_batch", verify)
+        mp.setattr(tpipeline, "MpsfmMapper", mapper)
+        rec, ok = tpipeline.reconstruct(scene_path, conf=load_cfg(tmp_path / "conf.json"),
+                                        sfm_outputs_dir=tmp_path / "port_out", device="cpu")
+    after = {p.name: p.stat().st_mtime_ns for p in cache.iterdir()}
+    assert {k for k in after if after[k] != before.get(k)} <= {"two_view_geometry.h5"}
+    assert verified == [0]
+    order = [i for i in kept["mapper"].nextview.registration_order if i is not None]
+    assert bool(ok) == j["ok"] and order == j["order"] and sorted(rec.reg_image_ids()) == j["registered"], (order, j)
+    assert len(j["registered"]) >= 2, j
+    # the plane priors keep a map of ~30 points here, where 1% is less than one: within 1% or one point
+    assert abs(rec.num_points3D() - j["points"]) <= max(POINTS_REL * j["points"], 1), (rec.num_points3D(), j)
